@@ -1,0 +1,316 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (opticalflowclustering_tpu_torch) on one
+CUDA card: builds the warp+M and box-solve kernels from the sources in the
+checkout, holds each against its plain PyTorch version on the card, drives
+the bounce-feature pipeline (process_frames) at 1280x720 with both kernel
+warp modes, checks it against the same pipeline on CPU tensors, matches a
+bounce signature, and times the pipeline and each kernel.
+
+    python3 chip_smoke.py
+
+Exits non-zero, printing no result, when there is no CUDA device or any
+phase fails. On success the line before the last is a JSON object with one
+entry per kernel, and the last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Imports torch and numpy only (no JAX, no cv2).
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+H, W, N = 720, 1280, 49
+REPEATS = 3
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def synth_frames(n: int, h: int, w: int, seed: int = 0) -> np.ndarray:
+    """numpy-only smooth-motion clip [n, h, w, 3] uint8: a box-blurred random
+    background and a filled disc that moves right and bobs. At 1280x720 it is
+    the JAX bench's clip (bench.py:52-64: radius 25, 20 px/frame) with a 9x9
+    box blur in place of cv2's Gaussian; other sizes scale it."""
+    rng = np.random.default_rng(seed)
+    k = 9
+    bg = rng.integers(0, 256, (h, w, 3)).astype(np.float64)
+    bg = np.pad(bg, ((k // 2, k // 2), (k // 2, k // 2), (0, 0)), mode="edge")
+    c = np.pad(bg.cumsum(0).cumsum(1), ((1, 0), (1, 0), (0, 0)))
+    bg = ((c[k:, k:] - c[:-k, k:] - c[k:, :-k] + c[:-k, :-k]) / (k * k)).astype(np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames = np.repeat(bg[None], n, axis=0)
+    sx, sy = w / 1280, h / 720
+    for i in range(n):
+        cx, cy = (100 + 20 * i) * sx, (300 + int(8 * np.sin(i / 3))) * sy
+        frames[i][(yy - cy) ** 2 + (xx - cx) ** 2 <= (25 * sy) ** 2] = (40, 200, 220)
+    return frames
+
+
+def noise_frames(n: int, h: int, w: int, seed: int = 7) -> np.ndarray:
+    """Independent uniform noise per frame (bench.py:67-73)."""
+    return np.random.default_rng(seed).integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+
+
+def check_hues(got, want, saturation, tag, min_exact=0.97) -> float:
+    """The repo's real-footage hue invariant (tests/test_real_footage_e2e.py
+    `_check_hues`): > min_exact of cells equal, and every disagreement beyond
+    ±2 circular hue steps in a low-saturation cell (spread ≤ 16)."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    exact = float((got == want).mean())
+    d = np.abs(got - want)
+    d = np.minimum(d, 180 - d)
+    check(exact > min_exact, f"{tag}: exact share {exact}")
+    worst = float(np.asarray(saturation)[d > 2.0].max(initial=0.0))
+    check(worst <= 16, f"{tag}: disagreement in a cell of saturation {worst}")
+    return exact
+
+
+def cell_means(bgr: np.ndarray, rows=14, cols=25) -> np.ndarray:
+    h, w = bgr.shape[-3:-1]
+    ys, xs = h // rows, w // cols
+    crop = bgr[..., : rows * ys, : cols * xs, :].astype(np.float64)
+    return crop.reshape(crop.shape[:-3] + (rows, ys, cols, xs, 3)).mean(axis=(-4, -2))
+
+
+def sat(colours) -> np.ndarray:
+    c = np.asarray(colours)[..., :3].astype(np.int32)
+    return (c.max(-1) - c.min(-1)).astype(np.float32)
+
+
+def main() -> int:
+    import torch
+
+    # Phase 1: device.
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(card)
+
+    from opticalflowclustering_tpu_torch.features.grid import GridParams, grid_mean_bgr
+    from opticalflowclustering_tpu_torch.flow.farneback import (
+        FarnebackParams,
+        farneback_flow,
+        poly_expansion,
+    )
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
+    from opticalflowclustering_tpu_torch.pipeline.bounce import (
+        PipelineConfig,
+        classify_bounce,
+        process_frames,
+    )
+    from opticalflowclustering_tpu_torch.runtime import resolve_device
+
+    dev = resolve_device("cuda")
+    stamp = f"[{card}]"
+
+    # Phase 2: build both kernels from the checkout's sources.
+    t0 = time.perf_counter()
+    kw.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s (warp_m.cu, box_solve.cu, bindings.cpp)")
+
+    # Phase 3: each kernel against its plain version on the card.
+    err = {"warp_m": 0.0, "box_solve": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def smooth_flow(b, h, w, amp):
+        low = torch.randn(b, 2, h // 16 + 2, w // 16 + 2, generator=gen, device=dev)
+        f = torch.nn.functional.interpolate(low, size=(h, w), mode="bilinear") * amp
+        return f[:, 0].contiguous(), f[:, 1].contiguous()
+
+    def compare(name, got, want, rtol, atol, tag):
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        err[name] = max(err[name], e)
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol, msg=lambda m: f"{name} {tag}: {m}")
+        return e
+
+    for b, h, w in [(2, 72, 300), (3, 40, 100), (16, H, W)]:
+        r0 = torch.randn(b, 5, h, w, generator=gen, device=dev) * 10
+        r1 = torch.randn(b, 5, h, w, generator=gen, device=dev) * 10
+        flows = {
+            "smooth": smooth_flow(b, h, w, 3.0),
+            "large": tuple(
+                (torch.rand(b, h, w, generator=gen, device=dev) * 300 - 150).contiguous()
+                for _ in range(2)
+            ),
+        }
+        for tag, (fx, fy) in flows.items():
+            m = kw.warp_m(r0, r1, fx, fy)
+            e = compare("warp_m", m, kw.warp_m_reference(r0, r1, fx, fy), 1e-4, 1e-3, f"{tag} {b}x{h}x{w}")
+            q = kw.quantize_r1_fast16(r1)
+            e16 = compare("warp_m", kw.warp_m(r0, q, fx, fy), kw.warp_m_reference(r0, q, fx, fy),
+                          1e-4, 1e-3, f"fast16 {tag} {b}x{h}x{w}")
+            for ws in (15, 17):
+                es = 0.0
+                for got, want in zip(kw.box_solve(m, ws), kw.box_solve_reference(m, ws)):
+                    es = max(es, compare("box_solve", got, want, 1e-4, 1e-4, f"ws{ws} {tag} {b}x{h}x{w}"))
+                print(f"check box_solve ws={ws} {tag} [{b},5,{h},{w}]: max_abs_err {es:.3g}")
+            print(f"check warp_m {tag} [{b},5,{h},{w}]: max_abs_err {e:.3g} (fast16 {e16:.3g})")
+        ri0 = torch.randint(-8, 8, (b, 5, h, w), generator=gen, device=dev).float()
+        ri1 = torch.randint(-8, 8, (b, 5, h, w), generator=gen, device=dev).float()
+        fi = [torch.randint(-150, 150, (b, h, w), generator=gen, device=dev).float() for _ in range(2)]
+        mk = kw.warp_m(ri0, ri1, *fi)
+        mr = kw.warp_m_reference(ri0, ri1, *fi)
+        compare("warp_m", mk, mr, 1e-4, 1e-3, f"integer {b}x{h}x{w}")
+        check(torch.equal(mk[..., 5:-5, 5:-5], mr[..., 5:-5, 5:-5]),
+              f"warp_m integer-exact interior not bitwise [{b},5,{h},{w}]")
+        print(f"check warp_m integer-exact [{b},5,{h},{w}]: interior bitwise, full equal={torch.equal(mk, mr)}")
+
+    # Phase 4: the slice, at 1280x720, through process_frames.
+    frames = synth_frames(N, H, W)
+    launches = {}
+    outs = {}
+    for mode in ("fast", "fast16"):
+        cfg = PipelineConfig(flow=FarnebackParams(warp_mode=mode))
+        kw.reset_launches()
+        out = process_frames(frames, cfg, device="cuda")
+        torch.cuda.synchronize()
+        launches[mode] = dict(kw.LAUNCHES)
+        print(f"slice {mode}: launches {launches[mode]}")
+        check(launches[mode] == {"warp_m": 36, "box_solve": 36},
+              f"{mode}: expected 36 launches of each kernel, got {launches[mode]}")
+        n_pairs = N - 1
+        check(out["hue_table"].shape == (n_pairs, 350), f"hue_table {out['hue_table'].shape}")
+        check(out["rgb_hue_table"].shape == (n_pairs, 350), "rgb_hue_table shape")
+        check(out["centroids"].shape == (n_pairs, 350, 4), "centroids shape")
+        check(out["flow_bgr"].shape == (n_pairs, H, W, 3), "flow_bgr shape")
+        check(np.isfinite(out["mean_magnitude"]).all() and np.isfinite(out["rgb_hue_table"]).all(),
+              "non-finite tables")
+        check(float(out["mean_magnitude"].max()) > 0.01, "no motion found")
+        outs[mode] = out
+
+    # The same pipeline on CPU tensors (plain versions) for the first 4 pairs.
+    head = frames[:5]
+    g = bgr2gray(torch.from_numpy(head))
+    for mode in ("fast", "fast16"):
+        p = FarnebackParams(warp_mode=mode)
+        fg = farneback_flow(g[:-1].to(dev), g[1:].to(dev), p).cpu()
+        fc = farneback_flow(g[:-1], g[1:], p)
+        epe = float(torch.linalg.vector_norm(fg - fc, dim=-1).mean())
+        check(epe <= 1e-3, f"{mode}: flow mean EPE card vs CPU {epe}")
+        cpu = process_frames(head, PipelineConfig(flow=p), device="cpu")
+        gpu = {k: v[:4] for k, v in outs[mode].items()}
+        md = float(np.abs(cell_means(gpu["flow_bgr"]) - cell_means(cpu["flow_bgr"])).max())
+        check(md <= 2.0, f"{mode}: render cell means differ by {md}")
+        ex = check_hues(gpu["hue_table"], cpu["hue_table"], sat(cpu["centroids"]), f"{mode} OutCSV")
+        mean_bgr = grid_mean_bgr(torch.from_numpy(cpu["flow_bgr"]), GridParams()).numpy()
+        check_hues(gpu["rgb_hue_table"], cpu["rgb_hue_table"], sat(mean_bgr),
+                   f"{mode} rgb_values", min_exact=0.94)
+        print(f"e2e {mode} card vs CPU (4 pairs): flow mean EPE {epe:.3g} px, "
+              f"render cell-mean diff {md:.3g}, hue exact share {ex:.4f}, "
+              f"flow bitwise equal {torch.equal(fg, fc)}")
+
+    # Pure-noise 720p frames: finite, and each kernel within tolerance of its
+    # plain version on the level-0 expansion and the flow the pipeline found.
+    nz = noise_frames(9, H, W)
+    kw.reset_launches()
+    out_n = process_frames(nz, PipelineConfig(emit_flow_bgr=False, flow=FarnebackParams(warp_mode="fast")), "cuda")
+    check(np.isfinite(out_n["mean_magnitude"]).all(), "noise: non-finite mean magnitude")
+    check(kw.LAUNCHES["warp_m"] > 0 and kw.LAUNCHES["box_solve"] > 0, "noise: kernels not launched")
+    gn = bgr2gray(torch.from_numpy(nz).to(dev)).float()
+    flow_n = farneback_flow(gn[:-1], gn[1:], FarnebackParams(warp_mode="fast"))
+    check(bool(torch.isfinite(flow_n).all()), "noise: non-finite flow")
+    r0 = poly_expansion(gn[:-1], 5, 1.2, channel_first=True)
+    r1 = poly_expansion(gn[1:], 5, 1.2, channel_first=True)
+    fx, fy = flow_n[..., 0].contiguous(), flow_n[..., 1].contiguous()
+    m = kw.warp_m(r0, r1, fx, fy)
+    en = compare("warp_m", m, kw.warp_m_reference(r0, r1, fx, fy), 1e-4, 1e-3, "noise")
+    es = 0.0
+    for got, want in zip(kw.box_solve(m, 15), kw.box_solve_reference(m, 15)):
+        es = max(es, compare("box_solve", got, want, 1e-4, 1e-4, "noise"))
+    print(f"noise {W}x{H} x{nz.shape[0]}: finite; max |flow| {flow_n.abs().max().item():.3g} px; "
+          f"warp_m err {en:.3g}, box_solve err {es:.3g}")
+
+    # Phase 5: bounce match on the card's hue series.
+    series = torch.from_numpy(outs["fast"]["hue_table"]).to(dev).float().mean(dim=1)
+    sig = series[20:25].clone()
+    check(float(sig.abs().sum()) > 0, "hue series window is all zero")
+    sim, frame = classify_bounce(sig, series, device="cuda")
+    check(sim >= 1 - 1e-6, f"bounce match similarity {sim}")
+    check(bool(torch.equal(series[frame : frame + 5], sig)), f"bounce match frame {frame}")
+    print(f"bounce match: similarity {sim:.7f} at frame {frame}")
+
+    # Phase 6: times on the card.
+    def pipeline_fps(mode):
+        cfg = PipelineConfig(emit_flow_bgr=False, flow=FarnebackParams(warp_mode=mode))
+        process_frames(frames, cfg, device="cuda")  # warm-up
+        times = []
+        for _ in range(REPEATS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            process_frames(frames, cfg, device="cuda")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return (N - 1) / float(np.median(times)), times
+
+    for mode in ("fast", "fast16", "exact"):
+        fps, times = pipeline_fps(mode)
+        label = "kernels" if mode != "exact" else "plain PyTorch warp, no kernels"
+        print(f"time process_frames {N}x{H}x{W} warp_mode={mode} ({label}): "
+              f"{fps:.2f} pairs/s (median of {REPEATS}, runs {', '.join(f'{t:.3f}' for t in times)} s) {stamp}")
+
+    def event_ms(fn, iters):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(iters):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / iters
+
+    r0 = torch.randn(16, 5, H, W, generator=gen, device=dev) * 10
+    r1 = torch.randn(16, 5, H, W, generator=gen, device=dev) * 10
+    fx, fy = smooth_flow(16, H, W, 3.0)
+    m = kw.warp_m(r0, r1, fx, fy)
+    pairs = {
+        "warp_m": (lambda: kw.warp_m(r0, r1, fx, fy), lambda: kw.warp_m_reference(r0, r1, fx, fy)),
+        "box_solve": (lambda: kw.box_solve(m, 15), lambda: kw.box_solve_reference(m, 15)),
+    }
+    times = {}
+    for name, (kern, plain) in pairs.items():
+        p1, k1, k2, p2 = event_ms(plain, 10), event_ms(kern, 50), event_ms(kern, 50), event_ms(plain, 10)
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        print(f"time {name} [16,5,{H},{W}]: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms "
+              f"(CUDA events; order plain, kernel, kernel, plain) {stamp}")
+
+    # Phase 7: results.
+    src = "opticalflowclustering_tpu_torch/kernels/csrc/"
+    kernels = [
+        {"name": "warp_m", "route": "cuda", "source": src + "warp_m.cu",
+         "replaces": "opticalflowclustering_tpu/kernels/warp.py:177",
+         "launches": launches["fast"]["warp_m"], "max_abs_err": err["warp_m"],
+         "ms": times["warp_m"][0], "plain_ms": times["warp_m"][1]},
+        {"name": "box_solve", "route": "cuda", "source": src + "box_solve.cu",
+         "replaces": "opticalflowclustering_tpu/kernels/warp.py:338",
+         "launches": launches["fast"]["box_solve"], "max_abs_err": err["box_solve"],
+         "ms": times["box_solve"][0], "plain_ms": times["box_solve"][1]},
+    ]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

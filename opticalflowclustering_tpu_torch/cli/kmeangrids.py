@@ -1,0 +1,114 @@
+"""Fused flow→grid→cluster CLI on PyTorch (port of
+`opticalflowclustering_tpu/cli/kmeangrids.py`, mirroring
+`k-means-color-clustering/KmeanGrids.py`, usage `KmeanGrids.py:406`):
+
+  -d OutImgs/<video> -c 1 -f addnew.csv --noyolo --nocontour --path <video>
+  [--device cuda|cpu] [--warp-mode fast|fast16|exact]
+
+Writes `OutCSV/<video>.csv` (hue table) and appends the per-cell rows to the
+-f CSV in the addnew.csv format. The port runs the video path without
+overlays; YOLO/contour overlays, `--stream` and the phase-2-only cell-tree
+path are not ported yet and exit with a message saying so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+
+def parse_arguments(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("-d", "--dir", required=True, help="Path to the image")
+    ap.add_argument("-c", "--clusters", required=True, type=int)
+    ap.add_argument("-f", "--csv", required=True, type=str)
+    ap.add_argument("--noyolo", action="store_false")
+    ap.add_argument("--nocontour", action="store_false")
+    ap.add_argument("--path", required=True, help="Path to the input video")
+    ap.add_argument("--max-frames", type=int, default=None)
+    ap.add_argument(
+        "--no-rb-swap",
+        action="store_true",
+        help="use the in-memory channel order instead of the golden-artifact "
+        "disk-roundtrip order",
+    )
+    ap.add_argument(
+        "--stream", action="store_true", help="not ported yet (exits with a message)"
+    )
+    ap.add_argument(
+        "--warp-mode",
+        choices=("fast", "fast16", "exact"),
+        default="fast",
+        help="flow-warp implementation: 'fast' runs the warp+M and box-solve "
+        "CUDA kernels on the card; 'fast16' the same with R1 rounded through "
+        "bf16; 'exact' the plain PyTorch warp",
+    )
+    ap.add_argument(
+        "--device",
+        default="cuda",
+        help="torch device to run on (default cuda; it raises where there is "
+        "no CUDA device rather than running on the CPU)",
+    )
+    return vars(ap.parse_args(argv))
+
+
+def main(argv=None):
+    args = parse_arguments(argv)
+    # argparse store_false: the flags default True, and passing --noyolo /
+    # --nocontour turns the overlays off (`KmeanGrids.py:255-257,353-354`).
+    if args["noyolo"] or args["nocontour"]:
+        raise SystemExit(
+            "YOLO/contour overlays are not ported to the PyTorch package yet; "
+            "pass --noyolo --nocontour"
+        )
+    if args["stream"]:
+        raise SystemExit("--stream is not ported to the PyTorch package yet")
+    if not os.path.isfile(args["path"]):
+        raise SystemExit(
+            f"{args['path']} is not a video file; the phase-2-only cell-tree "
+            "path is not ported to the PyTorch package yet"
+        )
+
+    from opticalflowclustering_tpu_torch.compat.writers import (
+        append_cluster_centers_rows,
+        write_hue_table_csv,
+    )
+    from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams
+    from opticalflowclustering_tpu_torch.pipeline.bounce import (
+        PipelineConfig,
+        process_video_file,
+    )
+
+    cfg = PipelineConfig(
+        rb_swap=not args["no_rb_swap"],
+        emit_flow_bgr=False,
+        flow=FarnebackParams(warp_mode=args["warp_mode"]),
+    )
+    out = process_video_file(args["path"], cfg, args["max_frames"], args["device"])
+    hue_table = out["hue_table"]
+
+    video_name = os.path.basename(args["dir"].rstrip("/\\"))
+    os.makedirs("OutCSV", exist_ok=True)
+    write_hue_table_csv(f"OutCSV/{video_name}.csv", hue_table)
+    print(
+        f"OutCSV/{video_name}.csv: {hue_table.shape[0]} frames x "
+        f"{hue_table.shape[1]} cells"
+    )
+
+    names = [
+        f"{f}/{c + 1}.png"
+        for f in range(2, 2 + hue_table.shape[0])
+        for c in range(hue_table.shape[1])
+    ]
+    append_cluster_centers_rows(
+        args["csv"],
+        names=names,
+        centroids=np.asarray(out["centroids"]).reshape(-1, 4),
+        hues=np.asarray(hue_table).reshape(-1),
+    )
+
+
+if __name__ == "__main__":
+    main()

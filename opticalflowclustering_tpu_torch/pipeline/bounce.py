@@ -1,0 +1,147 @@
+"""The end-to-end bounce-feature pipeline (port of `opticalflowclustering_tpu/pipeline/bounce.py`).
+
+  frames [N,H,W,3]u8 ──► gray ──► Farneback flow (N-1 pairs, batched)
+    ──► HSV render (per-frame min-max) ──► grid cells + white-line overlay
+    ──► RGBA preprocess ──► exact k=1 dominant hue      → OutCSV table
+    ──► per-cell mean hue                               → rgb_values table
+    ──► per-frame mean |flow|                           → telemetry CSV
+
+Frame pairs are independent, so a video goes through in chunks of
+`cfg.chunk` pairs: each chunk is copied to the device once, runs
+`chunk_step` there, and only its tables (and the rendered flow, when asked
+for) come back to the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from opticalflowclustering_tpu_torch.cluster.matcher import match_signature
+from opticalflowclustering_tpu_torch.features.dominant_color import (
+    dominant_hue_k1,
+    dominant_hue_k1_frames,
+    preprocess_cells_rgba,
+)
+from opticalflowclustering_tpu_torch.features.grid import GridParams, grid_mean_hue
+from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams, farneback_flow
+from opticalflowclustering_tpu_torch.flow.render import render_flow_hsv_bgr
+from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
+from opticalflowclustering_tpu_torch.ops.polar import magnitude
+from opticalflowclustering_tpu_torch.runtime import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    grid: GridParams = GridParams()
+    flow: FarnebackParams = FarnebackParams()
+    # Reproduce the R/B-swapped disk round trip that generated the golden
+    # OutCSV tables.
+    rb_swap: bool = True
+    # Frame pairs per chunk (device memory / throughput trade-off).
+    chunk: int = 16
+    # Return the rendered flow video (~2.7 MB per 720p frame) as well as
+    # the feature tables (~3 KB per frame).
+    emit_flow_bgr: bool = True
+
+
+@torch.inference_mode()
+def chunk_step(
+    frames_chunk, cfg: PipelineConfig, device: str | torch.device = "cuda"
+) -> dict[str, torch.Tensor]:
+    """One chunk of C+1 BGR frames [C+1, H, W, 3] uint8 → features of its C
+    pairs, computed on `device`; returns tensors on that device."""
+    dev = resolve_device(device)
+    frames = torch.as_tensor(frames_chunk).to(dev)
+    gray = bgr2gray(frames)
+    flow = farneback_flow(gray[:-1], gray[1:], cfg.flow)
+    mean_mag = magnitude(flow[..., 0], flow[..., 1]).mean(dim=(-2, -1))
+    flow_bgr = render_flow_hsv_bgr(flow)
+    centroids, hue = dominant_hue_k1_frames(flow_bgr, cfg.grid, rb_swap=cfg.rb_swap)
+    out = {
+        "hue_table": hue,
+        "rgb_hue_table": grid_mean_hue(flow_bgr, cfg.grid),
+        # Per-cell RGBA centroids: the addnew.csv rows (`KmeanGrids.py:320-339`).
+        "centroids": centroids,
+        "mean_magnitude": mean_mag,
+    }
+    if cfg.emit_flow_bgr:
+        out["flow_bgr"] = flow_bgr
+    return out
+
+
+def _stack_chunks(frames_bgr: np.ndarray, chunk: int) -> tuple[np.ndarray, int]:
+    """[N,H,W,3] → overlapping chunk stack [K, chunk+1, H, W, 3] (each
+    chunk shares its first frame with the previous chunk's last; the tail
+    pads by repeating the final frame)."""
+    n_pairs = frames_bgr.shape[0] - 1
+    k = -(-n_pairs // chunk)
+    chunks = np.empty((k, chunk + 1) + frames_bgr.shape[1:], frames_bgr.dtype)
+    for j in range(k):
+        start = j * chunk
+        stop = min(start + chunk, n_pairs)
+        c = frames_bgr[start : stop + 1]
+        chunks[j, : c.shape[0]] = c
+        chunks[j, c.shape[0] :] = c[-1:]
+    return chunks, n_pairs
+
+
+def process_frames(
+    frames_bgr: np.ndarray,
+    cfg: PipelineConfig = PipelineConfig(),
+    device: str | torch.device = "cuda",
+) -> dict[str, np.ndarray]:
+    """Full pipeline over decoded [N,H,W,3] uint8 BGR frames on `device`.
+
+    Returns per-pair numpy arrays (N-1 rows): hue_table uint8,
+    rgb_hue_table float32, centroids int32, mean_magnitude float32, and
+    flow_bgr uint8 when cfg.emit_flow_bgr."""
+    frames_bgr = np.asarray(frames_bgr)
+    if frames_bgr.shape[0] < 2:
+        raise ValueError("need at least 2 frames")
+    dev = resolve_device(device)
+    chunks, n_pairs = _stack_chunks(frames_bgr, cfg.chunk)
+    outs = []
+    for chunk in chunks:
+        out = chunk_step(torch.from_numpy(chunk), cfg, dev)
+        outs.append({k: v.cpu().numpy() for k, v in out.items()})
+    return {k: np.concatenate([o[k] for o in outs])[:n_pairs] for k in outs[0]}
+
+
+def process_video_file(
+    path: str,
+    cfg: PipelineConfig = PipelineConfig(),
+    max_frames: int | None = None,
+    device: str | torch.device = "cuda",
+) -> dict[str, np.ndarray]:
+    """process_frames over a video decoded on the host by the JAX package's
+    decoder (numpy and cv2 only; it does not load jax)."""
+    from opticalflowclustering_tpu.io.video import read_video_bgr
+
+    return process_frames(read_video_bgr(path, max_frames), cfg, device)
+
+
+@torch.inference_mode()
+def dominant_hue_series(
+    frames_bgr, rb_swap: bool = True, device: str | torch.device = "cuda"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Whole-frame dominant hue per frame (each frame is one "cell"):
+    [N,H,W,3] u8 → (centroids [N,4] int32, hues [N] uint8) on `device`."""
+    frames = torch.as_tensor(frames_bgr).to(resolve_device(device))
+    return dominant_hue_k1(preprocess_cells_rgba(frames, rb_swap=rb_swap))
+
+
+@torch.inference_mode()
+def classify_bounce(
+    signature_hue, series_hue, device: str | torch.device = "cuda"
+) -> tuple[float, int]:
+    """Sliding-window bounce match (`findCosineDifferentVectors.py:52-66`):
+    (max cosine similarity, frame index), the last tie wins."""
+    dev = resolve_device(device)
+    sim, frame = match_signature(
+        torch.as_tensor(signature_hue).to(dev, torch.float32),
+        torch.as_tensor(series_hue).to(dev, torch.float32),
+    )
+    return float(sim), int(frame)

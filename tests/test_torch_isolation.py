@@ -1,0 +1,121 @@
+"""The port stands apart from JAX: importing and running its main path loads
+neither jax nor cv2 nor pandas, and the state it carries across from the JAX
+package (configs, constant tables) equals the original
+(opticalflowclustering_tpu_torch.convert ↔ the JAX modules that build the
+tables)."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from opticalflowclustering_tpu.features.grid import GridParams as JGrid
+from opticalflowclustering_tpu.flow import farneback as jfb
+from opticalflowclustering_tpu.ops.colorspace import _hsv_div_tables
+from opticalflowclustering_tpu.ops.filters import gaussian_kernel
+from opticalflowclustering_tpu.ops.resize import _linear_weight_matrix
+from opticalflowclustering_tpu.pipeline.bounce import PipelineConfig as JPipe
+from opticalflowclustering_tpu_torch import convert
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from opticalflowclustering_tpu_torch.pipeline import bounce
+from opticalflowclustering_tpu_torch.cli import kmeangrids
+from opticalflowclustering_tpu_torch.kernels import warp
+from opticalflowclustering_tpu_torch import convert
+from opticalflowclustering_tpu_torch.compat import writers
+rng = np.random.default_rng(0)
+frames = rng.integers(0, 256, (3, 64, 100, 3), dtype=np.uint8)
+cfg = bounce.PipelineConfig(chunk=2, flow=bounce.FarnebackParams(warp_mode="fast"))
+out = bounce.process_frames(frames, cfg, device="cpu")
+assert out["hue_table"].shape == (2, 350), out["hue_table"].shape
+bad = [m for m in ("jax", "jaxlib", "cv2", "pandas") if m in sys.modules]
+print("LOADED", bad)
+"""
+
+
+def test_port_imports_no_jax_cv2_or_pandas():
+    """In a fresh interpreter: import the port's pipeline, CLI, kernels,
+    convert and writers modules and run process_frames on the CPU; jax,
+    cv2 and pandas stay unloaded."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run(
+        [sys.executable, "-c", _PROBE],
+        cwd=REPO,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=300,
+    )
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "LOADED []" in r.stdout, r.stdout
+
+
+def test_from_jax_config_round_trip():
+    """Every field of the JAX PipelineConfig / FarnebackParams / GridParams
+    arrives in the port's config of the same name."""
+    jcfg = JPipe(
+        grid=JGrid(rows=10, cols=12),
+        flow=jfb.FarnebackParams(
+            pyr_scale=0.6, levels=4, winsize=13, iterations=2, poly_n=7,
+            poly_sigma=1.5, gaussian_win=True, warp_mode="fast16",
+        ),
+        rb_swap=False,
+        chunk=5,
+        emit_flow_bgr=False,
+    )
+    tcfg = convert.from_jax_config(jcfg)
+    for obj_j, obj_t in ((jcfg, tcfg), (jcfg.flow, tcfg.flow), (jcfg.grid, tcfg.grid)):
+        assert type(obj_t).__name__ == type(obj_j).__name__
+        for f in dataclasses.fields(obj_t):
+            if f.name not in ("grid", "flow"):
+                assert getattr(obj_t, f.name) == getattr(obj_j, f.name), f.name
+    assert convert.from_jax_config(JPipe()) == type(tcfg)()
+    with pytest.raises(ValueError, match="select"):
+        convert.from_jax_config(jfb.FarnebackParams(warp_mode="select"))
+    with pytest.raises(TypeError):
+        convert.from_jax_config(object())
+
+
+@pytest.mark.parametrize("hw", [(720, 1280), (144, 200), (75, 131)])
+def test_constant_tables_equal_the_jax_originals(hw):
+    """Each table of convert.constant_tables is array_equal to what the JAX
+    function of its key builds for the same config and frame size."""
+    h, w = hw
+    jp = jfb.FarnebackParams()
+    tables = convert.constant_tables(convert.from_jax_config(JPipe()), h, w)
+    g, xg, xxg, *inv = jfb._poly_exp_consts(jp.poly_n, jp.poly_sigma)
+    sdiv, hdiv = _hsv_div_tables()
+    want = {
+        "poly_exp_consts.g": g,
+        "poly_exp_consts.xg": xg,
+        "poly_exp_consts.xxg": xxg,
+        "poly_exp_consts.inv_gram": np.array(inv),
+        "border_scale": jfb._BORDER_SCALE,
+        "pyramid_plan": np.array(jfb.pyramid_plan(h, w, jp)),
+        "hsv_div_tables.sdiv": sdiv,
+        "hsv_div_tables.hdiv": hdiv,
+    }
+    prev = None
+    for k, h_k, w_k, sigma in jfb.pyramid_plan(h, w, jp):
+        smooth_sz = max(jfb._cvround(sigma * 5) | 1, 3)
+        want[f"gaussian_kernel.level{k}"] = gaussian_kernel(smooth_sz, sigma)
+        want[f"linear_weight_matrix.level{k}.h"] = _linear_weight_matrix(h_k, h)
+        want[f"linear_weight_matrix.level{k}.w"] = _linear_weight_matrix(w_k, w)
+        if prev is not None:
+            want[f"linear_weight_matrix.flow{k}.h"] = _linear_weight_matrix(h_k, prev[0])
+            want[f"linear_weight_matrix.flow{k}.w"] = _linear_weight_matrix(w_k, prev[1])
+        want[f"border_taper.level{k}"] = jfb._border_taper(h_k, w_k)
+        prev = (h_k, w_k)
+    assert sorted(tables) == sorted(want)
+    for key, table in tables.items():
+        assert table.dtype == want[key].dtype, key
+        np.testing.assert_array_equal(table, want[key], err_msg=key)
