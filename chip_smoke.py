@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (opticalflowclustering_tpu_torch) on one
-CUDA card: builds the warp+M and box-solve kernels from the sources in the
-checkout, holds each against its plain PyTorch version on the card, drives
-the bounce-feature pipeline (process_frames) at 1280x720 with both kernel
-warp modes, checks it against the same pipeline on CPU tensors, matches a
-bounce signature, and times the pipeline and each kernel.
+CUDA card: builds the port's kernels (warp+M, box-solve and the gather-cost
+probes) from the sources in the checkout, holds each against its plain
+PyTorch version on the card, runs the probe scripts (gather_cost_probe,
+profile_r4) at their full sizes, drives the bounce-feature pipeline
+(process_frames) at 1280x720 with both kernel warp modes, checks it against
+the same pipeline on CPU tensors, matches a bounce signature, and times the
+pipeline and each kernel.
 
     python3 chip_smoke.py
 
@@ -17,52 +19,25 @@ Imports torch and numpy only (no JAX, no cv2).
 
 from __future__ import annotations
 
+import functools
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 
+from opticalflowclustering_tpu_torch.scripts.clips import noise_frames, synth_frames
+from opticalflowclustering_tpu_torch.utils.profiling import card_line
+
 H, W, N = 720, 1280, 49
 REPEATS = 3
+PROBE_CHECK_N = (1, 7, 256)  # probe checks: the plain loops run in Python
+PLAIN_SLOPE_N = (64, 256)  # trip counts of the plain loops' per-iteration slope
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-
-
-def synth_frames(n: int, h: int, w: int, seed: int = 0) -> np.ndarray:
-    """numpy-only smooth-motion clip [n, h, w, 3] uint8: a box-blurred random
-    background and a filled disc that moves right and bobs. At 1280x720 it is
-    the JAX bench's clip (bench.py:52-64: radius 25, 20 px/frame) with a 9x9
-    box blur in place of cv2's Gaussian; other sizes scale it."""
-    rng = np.random.default_rng(seed)
-    k = 9
-    bg = rng.integers(0, 256, (h, w, 3)).astype(np.float64)
-    bg = np.pad(bg, ((k // 2, k // 2), (k // 2, k // 2), (0, 0)), mode="edge")
-    c = np.pad(bg.cumsum(0).cumsum(1), ((1, 0), (1, 0), (0, 0)))
-    bg = ((c[k:, k:] - c[:-k, k:] - c[k:, :-k] + c[:-k, :-k]) / (k * k)).astype(np.uint8)
-    yy, xx = np.mgrid[0:h, 0:w]
-    frames = np.repeat(bg[None], n, axis=0)
-    sx, sy = w / 1280, h / 720
-    for i in range(n):
-        cx, cy = (100 + 20 * i) * sx, (300 + int(8 * np.sin(i / 3))) * sy
-        frames[i][(yy - cy) ** 2 + (xx - cx) ** 2 <= (25 * sy) ** 2] = (40, 200, 220)
-    return frames
-
-
-def noise_frames(n: int, h: int, w: int, seed: int = 7) -> np.ndarray:
-    """Independent uniform noise per frame (bench.py:67-73)."""
-    return np.random.default_rng(seed).integers(0, 256, (n, h, w, 3), dtype=np.uint8)
 
 
 def check_hues(got, want, saturation, tag, min_exact=0.97) -> float:
@@ -92,6 +67,93 @@ def sat(colours) -> np.ndarray:
     return (c.max(-1) - c.min(-1)).astype(np.float32)
 
 
+def probe_phase(dev, stamp: str) -> list[dict]:
+    """Phase 3b: the four gather-cost probe kernels. Holds each against its
+    plain version on the card (bitwise, at small trip counts), times the
+    plain loops per iteration, then runs the probe scripts at their full
+    sizes with every launch count set to 0 just before, and checks that each
+    probe kernel (and warp_m, box_solve through profile_r4's D) launched.
+    Returns the kernels' entries of the results line."""
+    import torch
+
+    from opticalflowclustering_tpu_torch.kernels import probes
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.scripts import gather_cost_probe as gcp
+    from opticalflowclustering_tpu_torch.scripts import profile_r4 as pr4
+    from opticalflowclustering_tpu_torch.utils import profiling
+
+    def tile(body):
+        return gcp.tile(dev, torch.bfloat16 if body == "take_bf16" else torch.float32)
+
+    err = {"loop_probe": 0.0, "dynslice": 0.0}
+    for body in probes.BODIES:
+        x, idx = tile(body)
+        for n in PROBE_CHECK_N:
+            got = probes.loop_probe(body, x, idx, n)
+            want = probes.loop_probe_reference(body, x, idx, n)
+            e = (got - want).abs().max().item()
+            err["loop_probe"] = max(err["loop_probe"], e)
+            check(torch.equal(got, want), f"loop_probe {body} n={n}: not bitwise, max abs err {e}")
+        print(f"check loop_probe {body} [80,128] n={PROBE_CHECK_N}: bitwise equal to the plain version")
+    xb, _ = tile("take_bf16")
+    for off in range(-8, 16):
+        o = torch.tensor([off], dtype=torch.int32, device=dev)
+        got, want = probes.dynslice(xb, o), probes.dynslice_reference(xb, o)
+        err["dynslice"] = max(err["dynslice"], (got - want).abs().max().item())
+        check(torch.equal(got, want), f"dynslice off={off}: not bitwise")
+    one = torch.tensor([1], dtype=torch.int32, device=dev)
+    check(torch.equal(probes.dynslice(xb, one), xb[8:32].float()), "dynslice off=1 is not x[8:32]")
+    print("check dynslice off -8..15: bitwise equal to the plain version; off=1 gives x[8:32]")
+
+    # The plain loops per iteration, by the slope between two small n.
+    plain_ns = {}
+    for body in probes.BODIES:
+        x, idx = tile(body)
+        plain_ns[body] = 1e6 * profiling.slope_ms(
+            lambda n, b=body, x=x, idx=idx: functools.partial(probes.loop_probe_reference, b, x, idx, n),
+            *PLAIN_SLOPE_N, repeats=3)
+    x, idx = tile("take")
+    n_ms = PLAIN_SLOPE_N[-1]
+    take_ms = profiling.event_ms(lambda: probes.loop_probe("take", x, idx, n_ms))
+    take_plain_ms = profiling.event_ms(lambda: probes.loop_probe_reference("take", x, idx, n_ms), 3)
+    dyn_plain_ms = profiling.event_ms(lambda: probes.dynslice_reference(xb, one))
+
+    # The probe path: both scripts at their full sizes.
+    probes.reset_launches()
+    kw.reset_launches()
+    g = gcp.run_all(dev, stamp)
+    r = pr4.run_all(dev, stamp)
+    launches, warp_launches = dict(probes.LAUNCHES), dict(kw.LAUNCHES)
+    print(f"probe path: launches {launches}, {warp_launches}")
+    check(all(v > 0 for v in launches.values()), f"a probe kernel was not launched: {launches}")
+    check(all(v > 0 for v in warp_launches.values()), f"profile_r4 D launched no warp kernel: {warp_launches}")
+
+    kern_ns = dict(g["f32"], take_bf16=g["take_bf16"], two_takes=r["two_takes_ns"],
+                   packed_take_unpack=r["packed_ns"])
+    gcp_src, r4_src = "scripts/gather_cost_probe.py", "scripts/profile_r4.py"
+    replaces = {"mul": f"{gcp_src}:34", "where": f"{gcp_src}:34", "take": f"{gcp_src}:34",
+                "take_bf16": f"{gcp_src}:94", "two_takes": f"{r4_src}:72",
+                "packed_take_unpack": f"{r4_src}:72"}
+    bodies = {}
+    for body in probes.BODIES:
+        bodies[body] = {"replaces": replaces[body], "ns_per_iter": kern_ns[body],
+                        "plain_ns_per_iter": plain_ns[body]}
+        print(f"time loop_probe {body} [80,128]: kernel {kern_ns[body]:.3f} ns/iter, plain "
+              f"{plain_ns[body]:.1f} ns/iter (CUDA events, slopes) {stamp}")
+    print(f"time loop_probe take n={n_ms}: kernel {take_ms:.4f} ms, plain {take_plain_ms:.4f} ms; "
+          f"dynslice: kernel {g['dynslice_ms']:.4f} ms, plain {dyn_plain_ms:.4f} ms (CUDA events) {stamp}")
+    src = "opticalflowclustering_tpu_torch/kernels/csrc/probes.cu"
+    return [
+        {"name": "loop_probe", "route": "cuda", "source": src,
+         "replaces": f"{gcp_src}:34, {gcp_src}:94, {r4_src}:72",
+         "launches": launches["loop_probe"], "max_abs_err": err["loop_probe"],
+         "ms": take_ms, "plain_ms": take_plain_ms, "ms_of": f"take, n={n_ms}", "bodies": bodies},
+        {"name": "dynslice", "route": "cuda", "source": src, "replaces": f"{gcp_src}:133",
+         "launches": launches["dynslice"], "max_abs_err": err["dynslice"],
+         "ms": g["dynslice_ms"], "plain_ms": dyn_plain_ms},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -109,6 +171,7 @@ def main() -> int:
         poly_expansion,
     )
     from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.kernels.build import SOURCES, build
     from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
     from opticalflowclustering_tpu_torch.pipeline.bounce import (
         PipelineConfig,
@@ -120,10 +183,10 @@ def main() -> int:
     dev = resolve_device("cuda")
     stamp = f"[{card}]"
 
-    # Phase 2: build both kernels from the checkout's sources.
+    # Phase 2: build every kernel from the checkout's sources, in one build.
     t0 = time.perf_counter()
-    kw.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s (warp_m.cu, box_solve.cu, bindings.cpp)")
+    build()
+    print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(SOURCES)})")
 
     # Phase 3: each kernel against its plain version on the card.
     err = {"warp_m": 0.0, "box_solve": 0.0}
@@ -172,6 +235,9 @@ def main() -> int:
         check(torch.equal(mk[..., 5:-5, 5:-5], mr[..., 5:-5, 5:-5]),
               f"warp_m integer-exact interior not bitwise [{b},5,{h},{w}]")
         print(f"check warp_m integer-exact [{b},5,{h},{w}]: interior bitwise, full equal={torch.equal(mk, mr)}")
+
+    # Phase 3b: the probe kernels and their scripts.
+    probe_kernels = probe_phase(dev, stamp)
 
     # Phase 4: the slice, at 1280x720, through process_frames.
     frames = synth_frames(N, H, W)
@@ -304,7 +370,7 @@ def main() -> int:
          "replaces": "opticalflowclustering_tpu/kernels/warp.py:338",
          "launches": launches["fast"]["box_solve"], "max_abs_err": err["box_solve"],
          "ms": times["box_solve"][0], "plain_ms": times["box_solve"][1]},
-    ]
+    ] + probe_kernels
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

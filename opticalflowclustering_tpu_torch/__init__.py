@@ -3,20 +3,26 @@ opticalflowclustering_tpu for one NVIDIA H100.
 
 The JAX package beside it is the reference: every module here mirrors the
 JAX module of the same path and is tested against it on the CPU. The two
-Pallas kernels of the Farneback inner loop become hand-written CUDA kernels
-for sm_90a (kernels/csrc/), built at first use; every other stage is plain
-PyTorch on the device the caller names.
+Pallas kernels of the Farneback inner loop and the four Pallas probe kernels
+of the gather-cost microbenchmarks become hand-written CUDA kernels for
+sm_90a (kernels/csrc/), built at first use in one build; every other stage
+is plain PyTorch on the device the caller names.
 
 Layout (mirrors the JAX package):
   runtime.py  device selection and the float32 policy
   ops/        cv2-exact colorspace, filters, resize, polar
   flow/       Farneback dense optical flow and the HSV flow render
-  kernels/    the warp+M and box-solve CUDA kernels and their plain versions
+  kernels/    the CUDA kernels (warp+M, box-solve, the probes), their build
+              and their plain versions
   features/   grid pooling and the per-cell dominant colour
   cluster/    the sliding-window signature matcher
   pipeline/   the bounce-feature pipeline (chunk_step, process_frames)
   compat/     byte-compatible CSV writers
   cli/        the kmeangrids entry point
+  scripts/    the probe scripts (gather_cost_probe, profile_r4) and the
+              bench clips
+  utils/      timing and tracing (StageTimer, ThroughputMeter, trace_to,
+              CUDA-event timers)
   convert.py  carries configs and constant tables across from the JAX side
 
 This package imports torch and numpy only; it never imports jax.

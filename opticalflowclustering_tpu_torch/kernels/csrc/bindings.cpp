@@ -1,9 +1,10 @@
-// PyTorch bindings of the warp_m and box_solve kernels.
+// PyTorch bindings of the warp_m, box_solve, loop_probe and dynslice kernels.
 //
 // The kernels' sources include no PyTorch header; each exposes a plain C
 // launcher. This file takes tensors, checks them, launches on PyTorch's
 // current stream of the tensors' device and raises if the launch failed.
-// Outputs are allocated by the Python wrappers (kernels/warp.py).
+// Outputs are allocated by the Python wrappers (kernels/warp.py,
+// kernels/probes.py).
 
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
@@ -15,12 +16,17 @@ extern "C" int ofc_warp_m(const float* r0, const float* r1, const float* fx,
                           void* stream);
 extern "C" int ofc_box_solve(const float* m, float* fx, float* fy, int b, int h,
                              int w, int radius, float inv_area, void* stream);
+extern "C" int ofc_loop_probe(int body, const void* x, const int* idx,
+                              float* out, int rows, int n, void* stream);
+extern "C" int ofc_dynslice(const void* x, const int* off, float* out,
+                            void* stream);
 
 namespace {
 
-void check(const torch::Tensor& t, const char* name, int64_t dim) {
+void check(const torch::Tensor& t, const char* name, int64_t dim,
+           torch::ScalarType dtype = torch::kFloat32) {
   TORCH_CHECK(t.is_cuda(), name, " must be a CUDA tensor");
-  TORCH_CHECK(t.scalar_type() == torch::kFloat32, name, " must be float32");
+  TORCH_CHECK(t.scalar_type() == dtype, name, " must be ", dtype);
   TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
   TORCH_CHECK(t.dim() == dim, name, " must have ", dim, " dims");
 }
@@ -74,10 +80,51 @@ void box_solve(const torch::Tensor& m, torch::Tensor fx, torch::Tensor fy,
            "box_solve");
 }
 
+constexpr int64_t kLanes = 128;
+constexpr int64_t kTakeBf16 = 3;  // index of take_bf16 in probes.py BODIES
+
+void loop_probe(int64_t body, const torch::Tensor& x, const torch::Tensor& idx,
+                torch::Tensor out, int64_t n) {
+  TORCH_CHECK(body >= 0 && body <= 5, "loop_probe: unknown body ", body);
+  check(x, "x", 2, body == kTakeBf16 ? torch::kBFloat16 : torch::kFloat32);
+  check(idx, "idx", 2, torch::kInt32);
+  check(out, "out", 2);
+  TORCH_CHECK(x.size(1) == kLanes && x.size(0) >= 1 &&
+                  idx.sizes() == x.sizes() && out.sizes() == x.sizes(),
+              "x, idx and out must be [rows, 128] of one shape");
+  TORCH_CHECK(n >= 0 && n < (int64_t{1} << 24),
+              "loop_probe needs 0 <= n < 2^24");
+  const c10::cuda::CUDAGuard guard(x.device());
+  void* stream = c10::cuda::getCurrentCUDAStream(x.get_device()).stream();
+  raise_on(ofc_loop_probe(static_cast<int>(body), x.data_ptr(),
+                          idx.data_ptr<int>(), out.data_ptr<float>(),
+                          static_cast<int>(x.size(0)), static_cast<int>(n),
+                          stream),
+           "loop_probe");
+}
+
+void dynslice(const torch::Tensor& x, const torch::Tensor& off,
+              torch::Tensor out) {
+  check(x, "x", 2, torch::kBFloat16);
+  check(off, "off", 1, torch::kInt32);
+  check(out, "out", 2);
+  TORCH_CHECK(x.size(0) == 80 && x.size(1) == kLanes, "x must be [80, 128]");
+  TORCH_CHECK(off.size(0) == 1, "off must hold one element");
+  TORCH_CHECK(out.size(0) == 24 && out.size(1) == kLanes,
+              "out must be [24, 128]");
+  const c10::cuda::CUDAGuard guard(x.device());
+  void* stream = c10::cuda::getCurrentCUDAStream(x.get_device()).stream();
+  raise_on(ofc_dynslice(x.data_ptr(), off.data_ptr<int>(),
+                        out.data_ptr<float>(), stream),
+           "dynslice");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("warp_m", &warp_m, "warp_m kernel: (r0, r1, fx, fy, m_out)");
   mod.def("box_solve", &box_solve,
           "box_solve kernel: (m, fx_out, fy_out, radius, inv_area)");
+  mod.def("loop_probe", &loop_probe, "loop_probe kernel: (body, x, idx, out, n)");
+  mod.def("dynslice", &dynslice, "dynslice kernel: (x, off, out)");
 }

@@ -25,17 +25,14 @@ they run the plain versions (`warp_m_reference`, `box_solve_reference`);
 for a CUDA tensor they launch the kernel or raise. `LAUNCHES` counts kernel
 launches, so a run can show that its main path went through the kernels.
 
-The kernels are built at first use with `torch.utils.cpp_extension.load`
-from the sources in `csrc/` into `<repo>/.torch_ext_build/`, compiled with
-`--fmad=false`: without multiply-add contraction the kernels run the same
-float32 operations in the same order as the plain versions, so the two
-agree bit for bit. A build or launch that fails raises.
+The kernels are built at first use by `kernels.build.build`, one build for
+all of the port's kernels, compiled with `--fmad=false`: without
+multiply-add contraction the kernels run the same float32 operations in the
+same order as the plain versions, so the two agree bit for bit. A build or
+launch that fails raises.
 """
 
 from __future__ import annotations
-
-import functools
-import pathlib
 
 import torch
 
@@ -44,15 +41,11 @@ from opticalflowclustering_tpu_torch.flow.farneback import (
     _update_flow,
     _update_matrices,
 )
+from opticalflowclustering_tpu_torch.kernels.build import build
 from opticalflowclustering_tpu_torch.runtime import f32
 
 _REACH_Y = 119  # vertical reach of the reference's candidate window
 _REACH_X = 127  # horizontal reach of the reference's 3-tile lane window
-
-CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".torch_ext_build"
-SOURCES = ("bindings.cpp", "warp_m.cu", "box_solve.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false")
 
 # Kernel launches per wrapper; `reset_launches` sets them to 0.
 LAUNCHES = {"warp_m": 0, "box_solve": 0}
@@ -61,22 +54,6 @@ LAUNCHES = {"warp_m": 0, "box_solve": 0}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-@functools.cache
-def build(verbose: bool = False):
-    """Compile (or load the cached build of) the kernels' extension."""
-    from torch.utils.cpp_extension import load
-
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    return load(
-        name="ofc_torch_kernels",
-        sources=[str(CSRC / s) for s in SOURCES],
-        build_directory=str(BUILD_DIR),
-        extra_cflags=["-O2"],
-        extra_cuda_cflags=list(NVCC_FLAGS),
-        verbose=verbose,
-    )
 
 
 def quantize_r1_fast16(r1: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,137 @@
+"""Timing and tracing (port of `opticalflowclustering_tpu/utils/profiling.py`).
+
+Per-stage wall timers that wait for the card, a frames/sec/card meter, a
+`torch.profiler` trace context, and the card-side timers the probe scripts
+use: CUDA events around one call, and the slope between two trip counts,
+which cancels the launch.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import os
+import subprocess
+import time
+from collections import defaultdict
+from collections.abc import Callable
+
+import torch
+
+
+class StageTimer:
+    """Accumulates per-stage wall time, waiting for the card where asked."""
+
+    def __init__(self):
+        self.totals: dict[str, float] = defaultdict(float)
+        self.counts: dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def stage(self, name: str, sync=None):
+        """Time the block. `sync`, a tensor, names the device to wait for
+        before the clock stops: a CUDA tensor synchronizes its device, a CPU
+        tensor (or None) waits for nothing."""
+        t0 = time.perf_counter()
+        yield
+        if sync is not None and sync.is_cuda:
+            torch.cuda.synchronize(sync.device)
+        self.totals[name] += time.perf_counter() - t0
+        self.counts[name] += 1
+
+    def report(self) -> str:
+        lines = []
+        for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
+            n = self.counts[name]
+            lines.append(f"{name}: {total * 1e3:.1f} ms total, "
+                         f"{total / n * 1e3:.2f} ms/call ({n} calls)")
+        return "\n".join(lines)
+
+
+class ThroughputMeter:
+    """frames/sec/card meter — `imutils.FPS` equivalent
+    (`real_time_object_detection.py:31,67-71`) for batched pipelines."""
+
+    def __init__(self):
+        self._start = None
+        self._frames = 0
+
+    def start(self):
+        self._start = time.perf_counter()
+        self._frames = 0
+        return self
+
+    def update(self, n_frames: int = 1):
+        self._frames += n_frames
+
+    def elapsed(self) -> float:
+        return time.perf_counter() - self._start
+
+    def fps(self) -> float:
+        e = self.elapsed()
+        return self._frames / e if e > 0 else 0.0
+
+    def fps_per_chip(self) -> float:
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 1
+        return self.fps() / max(cards, 1)
+
+
+@contextlib.contextmanager
+def trace_to(logdir: str):
+    """torch.profiler trace context: `with trace_to('traces') as prof:
+    run()` profiles the CPU and, where there is one, the card, and writes
+    `<logdir>/trace.json` (Chrome trace format) on exit; `prof.key_averages()`
+    sums the time by operator."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def card_line(index: int = 0) -> str:
+    """Card `index`'s name and power limit, as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def event_ms(fn: Callable[[], object], repeats: int = 10, warmup: int = 1) -> float:
+    """Least time in ms of one call of `fn` over `repeats` calls, between CUDA
+    events recorded on the current stream around it (after `warmup` calls).
+    Raises where there is no CUDA device: it times the card only."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("event_ms times the card, but torch.cuda.is_available() is False")
+    for _ in range(warmup):
+        fn()
+    best = math.inf
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def slope_ms(
+    fn_of: Callable[[int], Callable[[], object]], lo: int, hi: int, repeats: int = 10
+) -> float:
+    """(t(hi) − t(lo)) / (hi − lo) in ms, where t(k) is `event_ms` of
+    `fn_of(k)`: the cost of one more unit of work with the launch cancelled.
+    Raises if t(hi) is not at least 1.5 × t(lo), which is what a loop that
+    the compiler hoisted or folded looks like."""
+    t_lo = event_ms(fn_of(lo), repeats)
+    t_hi = event_ms(fn_of(hi), repeats)
+    if not t_hi >= 1.5 * t_lo:
+        raise RuntimeError(
+            f"time does not grow with the work: t({hi}) = {t_hi:.6g} ms, "
+            f"t({lo}) = {t_lo:.6g} ms (loop hoisted or folded?)"
+        )
+    return (t_hi - t_lo) / (hi - lo)

@@ -1,16 +1,21 @@
-"""The port stands apart from JAX: importing and running its main path loads
-neither jax nor cv2 nor pandas, and the state it carries across from the JAX
-package (configs, constant tables) equals the original
+"""The port stands apart from JAX: importing and running its main path and
+its probe path loads neither jax nor cv2 nor pandas, the state it carries
+across from the JAX package (configs, constant tables) equals the original
 (opticalflowclustering_tpu_torch.convert ↔ the JAX modules that build the
-tables)."""
+tables), and chip_smoke.py's probe phase runs end to end on the CPU with its
+kernel entries replaced by counted plain versions."""
 
 import dataclasses
+import json
+import math
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
+import torch
 
 from opticalflowclustering_tpu.features.grid import GridParams as JGrid
 from opticalflowclustering_tpu.flow import farneback as jfb
@@ -57,6 +62,111 @@ def test_port_imports_no_jax_cv2_or_pandas():
     )
     assert r.returncode == 0, r.stderr[-2000:]
     assert "LOADED []" in r.stdout, r.stdout
+
+
+_PROBE_PATH = """
+import sys
+import torch
+torch.set_num_threads(1)
+from opticalflowclustering_tpu_torch.kernels import probes
+from opticalflowclustering_tpu_torch.utils import profiling
+from opticalflowclustering_tpu_torch.scripts import clips, gather_cost_probe, profile_r4
+x, idx = gather_cost_probe.tile("cpu")
+for body in probes.BODIES:
+    xb = x.to(torch.bfloat16) if body == "take_bf16" else x
+    assert probes.loop_probe(body, xb, idx, 5).shape == (80, 128)
+off = torch.tensor([1], dtype=torch.int32)
+assert torch.equal(probes.dynslice(x.to(torch.bfloat16), off), x.to(torch.bfloat16)[8:32].float())
+assert clips.synth_frames(2, 36, 64).shape == (2, 36, 64, 3)
+t = profiling.StageTimer()
+with t.stage("probe", sync=x):
+    pass
+bad = [m for m in ("jax", "jaxlib", "cv2", "pandas") if m in sys.modules]
+print("LOADED", bad)
+"""
+
+
+def test_probe_modules_import_no_jax_or_cv2():
+    """In a fresh interpreter: import the probe kernels, the profiling
+    utilities and the probe scripts, and run every plain probe on the CPU;
+    jax, cv2 and pandas stay unloaded."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run(
+        [sys.executable, "-c", _PROBE_PATH],
+        cwd=REPO,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=300,
+    )
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "LOADED []" in r.stdout, r.stdout
+
+
+def test_chip_smoke_probe_phase_rehearsal(monkeypatch, capsys):
+    """chip_smoke.probe_phase on the CPU at small sizes: the kernel entries
+    are counted plain versions and the card timers a host clock. Every check
+    of the phase runs, each probe kernel and warp kernel is counted on the
+    probe path, and the phase returns the two probe entries of the results
+    line with every field the contract names."""
+    import chip_smoke
+    from opticalflowclustering_tpu_torch.kernels import probes
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.scripts import gather_cost_probe as gcp
+    from opticalflowclustering_tpu_torch.scripts import profile_r4 as pr4
+    from opticalflowclustering_tpu_torch.utils import profiling
+
+    def counted(mod, name, plain):
+        def run(*args):
+            mod.LAUNCHES[name] += 1
+            return plain(*args)
+
+        monkeypatch.setattr(mod, name, run)
+
+    def host_ms(fn, repeats=10, warmup=1):
+        for _ in range(warmup):
+            fn()
+        best = math.inf
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3
+
+    counted(probes, "loop_probe", probes.loop_probe_reference)
+    counted(probes, "dynslice", probes.dynslice_reference)
+    counted(kw, "warp_m", kw.warp_m_reference)
+    counted(kw, "box_solve", kw.box_solve_reference)
+    monkeypatch.setattr(profiling, "event_ms", host_ms)
+    monkeypatch.setattr(gcp, "N_LO", 8)
+    monkeypatch.setattr(gcp, "N_HI", 64)
+    for name, value in [("N_LO", 8), ("N_HI", 64), ("BW_SHAPE", (4, 72, 128)), ("H", 64),
+                        ("W", 100), ("FRAMES", 3), ("REPEATS", 1), ("WARP_BATCH", 2)]:
+        monkeypatch.setattr(pr4, name, value)
+    torch.set_num_threads(1)
+
+    entries = chip_smoke.probe_phase(torch.device("cpu"), "[cpu rehearsal]")
+    out = capsys.readouterr().out
+    assert out.count("bitwise equal to the plain version") == len(probes.BODIES) + 1
+    for tag in ("mul:", "where:", "take:", "take-bf16:", "bf16 8-row", "A. ", "B. ",
+                "D. fast/smooth", "D. fast16/noise", "C. smooth", "C. measured"):
+        assert tag in out, tag
+    assert probes.LAUNCHES["loop_probe"] > 0 and probes.LAUNCHES["dynslice"] > 0
+    assert kw.LAUNCHES["warp_m"] > 0 and kw.LAUNCHES["box_solve"] > 0
+    assert [e["name"] for e in entries] == ["loop_probe", "dynslice"]
+    for e in entries:
+        assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                "plain_ms"} <= set(e)
+        assert e["route"] == "cuda" and os.path.isfile(os.path.join(REPO, e["source"]))
+        assert e["launches"] == probes.LAUNCHES[e["name"]] and e["max_abs_err"] == 0.0
+        for ref in e["replaces"].split(", "):
+            path, line = ref.split(":")
+            with open(os.path.join(REPO, path)) as f:
+                assert "def " in f.read().splitlines()[int(line) - 1], ref
+    bodies = entries[0]["bodies"]
+    assert sorted(bodies) == sorted(probes.BODIES)
+    assert all(b["ns_per_iter"] > 0 and b["plain_ns_per_iter"] > 0 for b in bodies.values())
+    json.dumps(entries)
 
 
 def test_from_jax_config_round_trip():

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import synth_frames
+from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
 from test_torch_pipeline import _e2e
 
 torch.set_num_threads(1)
@@ -16,7 +16,7 @@ torch.set_num_threads(1)
 
 @pytest.mark.parametrize("mode", ["fast", "fast16"])
 def test_process_frames_matches_jax_on_synthetic_clip(mode):
-    """chip_smoke's numpy-made clip (blurred noise, a moving disc) at 9
-    frames of 144×200."""
+    """The numpy-made bench clip (scripts.clips; blurred noise, a moving
+    disc) at 9 frames of 144×200."""
     got = _e2e(synth_frames(9, 144, 200), mode)
     assert np.isfinite(got["mean_magnitude"]).all() and got["mean_magnitude"].max() > 0.01
