@@ -2,11 +2,14 @@
 """Smoke test of the PyTorch port (opticalflowclustering_tpu_torch) on one
 CUDA card: builds the port's kernels (warp+M, box-solve and the gather-cost
 probes) from the sources in the checkout, holds each against its plain
-PyTorch version on the card, runs the probe scripts (gather_cost_probe,
-profile_r4) at their full sizes, drives the bounce-feature pipeline
-(process_frames) at 1280x720 with both kernel warp modes, checks it against
-the same pipeline on CPU tensors, matches a bounce signature, and times the
-pipeline and each kernel.
+PyTorch version on the card (box-solve bit for bit at every odd winsize up to
+17, on the 720p pyramid's level shapes and on small frames), runs the probe
+scripts (gather_cost_probe, profile_r4) at their full sizes, drives the
+bounce-feature pipeline (process_frames) at 1280x720 with both kernel warp
+modes, checks it against the same pipeline on CPU tensors, matches a bounce
+signature, and times the pipeline and each kernel, the pipeline kernels at
+each pyramid level beside their bounds (the least time the card could take:
+bytes over the HBM rate or operations over the float32 rate).
 
     python3 chip_smoke.py
 
@@ -33,6 +36,11 @@ H, W, N = 720, 1280, 49
 REPEATS = 3
 PROBE_CHECK_N = (1, 7, 256)  # probe checks: the plain loops run in Python
 PLAIN_SLOPE_N = (64, 256)  # trip counts of the plain loops' per-iteration slope
+# box_solve's bitwise check: every odd winsize the kernel takes, on the
+# pyramid's level shapes and on these, whose windows are wider than the
+# frame or whose widths are no multiple of 4.
+BOX_WINSIZES = tuple(range(1, 18, 2))
+BOX_SHAPES = ((2, 72, 300), (3, 40, 100), (1, 5, 7), (1, 3, 40))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -117,6 +125,8 @@ def probe_phase(dev, stamp: str) -> list[dict]:
     take_ms = profiling.event_ms(lambda: probes.loop_probe("take", x, idx, n_ms))
     take_plain_ms = profiling.event_ms(lambda: probes.loop_probe_reference("take", x, idx, n_ms), 3)
     dyn_plain_ms = profiling.event_ms(lambda: probes.dynslice_reference(xb, one))
+    take_bound, take_by = profiling.bound_ms(*probes.loop_probe_cost("take", x.shape[0], n_ms))
+    dyn_bound, dyn_by = profiling.bound_ms(*probes.dynslice_cost())
 
     # The probe path: both scripts at their full sizes.
     probes.reset_launches()
@@ -136,21 +146,28 @@ def probe_phase(dev, stamp: str) -> list[dict]:
                 "packed_take_unpack": f"{r4_src}:72"}
     bodies = {}
     for body in probes.BODIES:
+        # One more iteration moves no byte: its bound is its operations'.
+        bound_ns = 1e6 * profiling.bound_ms(0, probes.loop_probe_cost(body, x.shape[0], 1)[1])[0]
         bodies[body] = {"replaces": replaces[body], "ns_per_iter": kern_ns[body],
-                        "plain_ns_per_iter": plain_ns[body]}
+                        "plain_ns_per_iter": plain_ns[body], "bound_ns_per_iter": bound_ns}
         print(f"time loop_probe {body} [80,128]: kernel {kern_ns[body]:.3f} ns/iter, plain "
-              f"{plain_ns[body]:.1f} ns/iter (CUDA events, slopes) {stamp}")
-    print(f"time loop_probe take n={n_ms}: kernel {take_ms:.4f} ms, plain {take_plain_ms:.4f} ms; "
-          f"dynslice: kernel {g['dynslice_ms']:.4f} ms, plain {dyn_plain_ms:.4f} ms (CUDA events) {stamp}")
+              f"{plain_ns[body]:.1f} ns/iter, bound {bound_ns:.3f} ns/iter ({bound_ns / kern_ns[body]:.1%}; "
+              f"one dependent chain per thread on one wave) (CUDA events, slopes) {stamp}")
+    print(f"time loop_probe take n={n_ms}: kernel {take_ms:.4f} ms, plain {take_plain_ms:.4f} ms, "
+          f"bound {take_bound:.6f} ms ({take_by}); dynslice: kernel {g['dynslice_ms']:.4f} ms, "
+          f"plain {dyn_plain_ms:.4f} ms, bound {dyn_bound:.6f} ms ({dyn_by}) (CUDA events; a dependent "
+          f"chain and one launch, so far from any bound by design) {stamp}")
     src = "opticalflowclustering_tpu_torch/kernels/csrc/probes.cu"
     return [
         {"name": "loop_probe", "route": "cuda", "source": src,
          "replaces": f"{gcp_src}:34, {gcp_src}:94, {r4_src}:72",
          "launches": launches["loop_probe"], "max_abs_err": err["loop_probe"],
-         "ms": take_ms, "plain_ms": take_plain_ms, "ms_of": f"take, n={n_ms}", "bodies": bodies},
+         "ms": take_ms, "plain_ms": take_plain_ms, "bound_ms": take_bound, "bound_by": take_by,
+         "library_ms": None, "ms_of": f"take, n={n_ms}", "bodies": bodies},
         {"name": "dynslice", "route": "cuda", "source": src, "replaces": f"{gcp_src}:133",
          "launches": launches["dynslice"], "max_abs_err": err["dynslice"],
-         "ms": g["dynslice_ms"], "plain_ms": dyn_plain_ms},
+         "ms": g["dynslice_ms"], "plain_ms": dyn_plain_ms, "bound_ms": dyn_bound, "bound_by": dyn_by,
+         "library_ms": None},
     ]
 
 
@@ -169,6 +186,7 @@ def main() -> int:
         FarnebackParams,
         farneback_flow,
         poly_expansion,
+        pyramid_plan,
     )
     from opticalflowclustering_tpu_torch.kernels import warp as kw
     from opticalflowclustering_tpu_torch.kernels.build import SOURCES, build
@@ -179,6 +197,7 @@ def main() -> int:
         process_frames,
     )
     from opticalflowclustering_tpu_torch.runtime import resolve_device
+    from opticalflowclustering_tpu_torch.utils.profiling import bound_ms
 
     dev = resolve_device("cuda")
     stamp = f"[{card}]"
@@ -204,6 +223,22 @@ def main() -> int:
         torch.testing.assert_close(got, want, rtol=rtol, atol=atol, msg=lambda m: f"{name} {tag}: {m}")
         return e
 
+    def check_bitwise(name, got, want, tag):
+        torch.cuda.synchronize()
+        e = max((g - w).abs().max().item() for g, w in zip(got, want))
+        err[name] = max(err[name], e)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"{name} {tag}: not bitwise, max abs err {e}")
+
+    def m_case(b, h, w):
+        """Random R0, R1, a smooth flow and the M that warp_m makes of them."""
+        r0 = torch.randn(b, 5, h, w, generator=gen, device=dev) * 10
+        r1 = torch.randn(b, 5, h, w, generator=gen, device=dev) * 10
+        fx, fy = smooth_flow(b, h, w, 3.0)
+        return r0, r1, fx, fy, kw.warp_m(r0, r1, fx, fy)
+
+    params = FarnebackParams()
+    levels = [(16, h_k, w_k) for _, h_k, w_k, _ in reversed(pyramid_plan(H, W, params))]
+
     for b, h, w in [(2, 72, 300), (3, 40, 100), (16, H, W)]:
         r0 = torch.randn(b, 5, h, w, generator=gen, device=dev) * 10
         r1 = torch.randn(b, 5, h, w, generator=gen, device=dev) * 10
@@ -221,11 +256,10 @@ def main() -> int:
             e16 = compare("warp_m", kw.warp_m(r0, q, fx, fy), kw.warp_m_reference(r0, q, fx, fy),
                           1e-4, 1e-3, f"fast16 {tag} {b}x{h}x{w}")
             for ws in (15, 17):
-                es = 0.0
-                for got, want in zip(kw.box_solve(m, ws), kw.box_solve_reference(m, ws)):
-                    es = max(es, compare("box_solve", got, want, 1e-4, 1e-4, f"ws{ws} {tag} {b}x{h}x{w}"))
-                print(f"check box_solve ws={ws} {tag} [{b},5,{h},{w}]: max_abs_err {es:.3g}")
-            print(f"check warp_m {tag} [{b},5,{h},{w}]: max_abs_err {e:.3g} (fast16 {e16:.3g})")
+                check_bitwise("box_solve", kw.box_solve(m, ws), kw.box_solve_reference(m, ws),
+                              f"ws{ws} {tag} [{b},5,{h},{w}]")
+            print(f"check warp_m {tag} [{b},5,{h},{w}]: max_abs_err {e:.3g} (fast16 {e16:.3g}); "
+                  f"box_solve of its M at winsize 15, 17 bitwise equal to the plain version")
         ri0 = torch.randint(-8, 8, (b, 5, h, w), generator=gen, device=dev).float()
         ri1 = torch.randint(-8, 8, (b, 5, h, w), generator=gen, device=dev).float()
         fi = [torch.randint(-150, 150, (b, h, w), generator=gen, device=dev).float() for _ in range(2)]
@@ -235,6 +269,16 @@ def main() -> int:
         check(torch.equal(mk[..., 5:-5, 5:-5], mr[..., 5:-5, 5:-5]),
               f"warp_m integer-exact interior not bitwise [{b},5,{h},{w}]")
         print(f"check warp_m integer-exact [{b},5,{h},{w}]: interior bitwise, full equal={torch.equal(mk, mr)}")
+
+    # box_solve bit for bit, at every winsize, on every level and small shape.
+    for b, h, w in levels + list(BOX_SHAPES):
+        m = m_case(b, h, w)[-1]
+        for ws in BOX_WINSIZES:
+            check_bitwise("box_solve", kw.box_solve(m, ws), kw.box_solve_reference(m, ws),
+                          f"ws{ws} [{b},5,{h},{w}]")
+        print(f"check box_solve winsize {BOX_WINSIZES[0]}..{BOX_WINSIZES[-1]} (odd) [{b},5,{h},{w}]: "
+              f"bitwise equal to the plain version")
+    del m
 
     # Phase 3b: the probe kernels and their scripts.
     probe_kernels = probe_phase(dev, stamp)
@@ -298,11 +342,9 @@ def main() -> int:
     fx, fy = flow_n[..., 0].contiguous(), flow_n[..., 1].contiguous()
     m = kw.warp_m(r0, r1, fx, fy)
     en = compare("warp_m", m, kw.warp_m_reference(r0, r1, fx, fy), 1e-4, 1e-3, "noise")
-    es = 0.0
-    for got, want in zip(kw.box_solve(m, 15), kw.box_solve_reference(m, 15)):
-        es = max(es, compare("box_solve", got, want, 1e-4, 1e-4, "noise"))
+    check_bitwise("box_solve", kw.box_solve(m, 15), kw.box_solve_reference(m, 15), "noise")
     print(f"noise {W}x{H} x{nz.shape[0]}: finite; max |flow| {flow_n.abs().max().item():.3g} px; "
-          f"warp_m err {en:.3g}, box_solve err {es:.3g}")
+          f"warp_m err {en:.3g}, box_solve bitwise equal")
 
     # Phase 5: bounce match on the card's hue series.
     series = torch.from_numpy(outs["fast"]["hue_table"]).to(dev).float().mean(dim=1)
@@ -344,20 +386,41 @@ def main() -> int:
         torch.cuda.synchronize()
         return s.elapsed_time(e) / iters
 
-    r0 = torch.randn(16, 5, H, W, generator=gen, device=dev) * 10
-    r1 = torch.randn(16, 5, H, W, generator=gen, device=dev) * 10
-    fx, fy = smooth_flow(16, H, W, 3.0)
-    m = kw.warp_m(r0, r1, fx, fy)
-    pairs = {
-        "warp_m": (lambda: kw.warp_m(r0, r1, fx, fy), lambda: kw.warp_m_reference(r0, r1, fx, fy)),
-        "box_solve": (lambda: kw.box_solve(m, 15), lambda: kw.box_solve_reference(m, 15)),
-    }
-    times = {}
-    for name, (kern, plain) in pairs.items():
-        p1, k1, k2, p2 = event_ms(plain, 10), event_ms(kern, 50), event_ms(kern, 50), event_ms(plain, 10)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"time {name} [16,5,{H},{W}]: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms "
-              f"(CUDA events; order plain, kernel, kernel, plain) {stamp}")
+    # Each pipeline kernel at each pyramid level, beside its bound; at the
+    # finest level also its plain version, in turns.
+    kernel_times, per_level = {}, {"warp_m": [], "box_solve": []}
+    for b, h, w in levels:
+        r0, r1, fx, fy, m = m_case(b, h, w)
+        pairs = {
+            "warp_m": (lambda: kw.warp_m(r0, r1, fx, fy), lambda: kw.warp_m_reference(r0, r1, fx, fy)),
+            "box_solve": (lambda: kw.box_solve(m, params.winsize),
+                          lambda: kw.box_solve_reference(m, params.winsize)),
+        }
+        for name, (kern, plain) in pairs.items():
+            bound, by = bound_ms(kw.kernel_bytes(name, b, h, w), kw.kernel_ops(name, b, h, w, params.winsize))
+            if (h, w) == (H, W):
+                p1, k1, k2, p2 = event_ms(plain, 10), event_ms(kern, 50), event_ms(kern, 50), event_ms(plain, 10)
+                ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+                kernel_times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+                order = f", plain {plain_ms:.4f} ms (order plain, kernel, kernel, plain)"
+            else:
+                ms, order = event_ms(kern, 50), ""
+            per_level[name].append((ms, bound))
+            print(f"time {name} [{b},5,{h},{w}]: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+                  f"{bound / ms:.1%} of the bound{order} (CUDA events) {stamp}")
+        if (h, w) == (H, W):
+            for ws in BOX_WINSIZES:
+                ms = event_ms(lambda: kw.box_solve(m, ws), 20)
+                bound, by = bound_ms(kw.kernel_bytes("box_solve", b, h, w), kw.kernel_ops("box_solve", b, h, w, ws))
+                print(f"time box_solve [{b},5,{h},{w}] winsize {ws}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
+                      f"({by}), {bound / ms:.1%} of the bound (CUDA events) {stamp}")
+    del r0, r1, fx, fy, m
+    for name, rows in per_level.items():
+        n = len(rows) * params.iterations
+        ms = params.iterations * sum(t for t, _ in rows)
+        bound = params.iterations * sum(bd for _, bd in rows)
+        print(f"time {name} per 16-pair chunk ({len(rows)} levels x {params.iterations} iterations = "
+              f"{n} launches): {ms:.4f} ms, bound {bound:.4f} ms, {bound / ms:.1%} of the bound {stamp}")
 
     # Phase 7: results.
     src = "opticalflowclustering_tpu_torch/kernels/csrc/"
@@ -365,11 +428,11 @@ def main() -> int:
         {"name": "warp_m", "route": "cuda", "source": src + "warp_m.cu",
          "replaces": "opticalflowclustering_tpu/kernels/warp.py:177",
          "launches": launches["fast"]["warp_m"], "max_abs_err": err["warp_m"],
-         "ms": times["warp_m"][0], "plain_ms": times["warp_m"][1]},
+         **kernel_times["warp_m"], "library_ms": None},
         {"name": "box_solve", "route": "cuda", "source": src + "box_solve.cu",
          "replaces": "opticalflowclustering_tpu/kernels/warp.py:338",
          "launches": launches["fast"]["box_solve"], "max_abs_err": err["box_solve"],
-         "ms": times["box_solve"][0], "plain_ms": times["box_solve"][1]},
+         **kernel_times["box_solve"], "library_ms": None},
     ] + probe_kernels
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,8 @@
 Writes `OutCSV/<video>.csv` (hue table) and appends the per-cell rows to the
 -f CSV in the addnew.csv format. The port runs the video path without
 overlays; YOLO/contour overlays, `--stream` and the phase-2-only cell-tree
-path are not ported yet and exit with a message saying so.
+path (which the JAX CLI also takes when `--path` is a Git-LFS pointer stub)
+are not ported yet and exit with a message saying so.
 """
 
 from __future__ import annotations
@@ -69,6 +70,15 @@ def main(argv=None):
         raise SystemExit(
             f"{args['path']} is not a video file; the phase-2-only cell-tree "
             "path is not ported to the PyTorch package yet"
+        )
+    from opticalflowclustering_tpu_torch.io.video import is_lfs_pointer
+
+    if is_lfs_pointer(args["path"]):
+        # The reference commits every .mp4 as a Git-LFS pointer stub; the JAX
+        # CLI then clusters the committed cell tree instead.
+        raise SystemExit(
+            f"{args['path']} is a Git-LFS pointer stub, not video data; the "
+            "phase-2-only cell-tree path is not ported to the PyTorch package yet"
         )
 
     from opticalflowclustering_tpu_torch.compat.writers import (

@@ -14,8 +14,9 @@
 //
 // What bounds it on the card: memory. Per pixel it reads 2 flow values,
 // 5 of R0 and 4 corners x 5 channels of R1 (cached: neighbouring threads
-// share corners) and writes 5 of M, about 48 bytes of compulsory traffic
-// for ~150 flops. The TPU kernel's windowed DMA, candidate-row loop and
+// share corners, so each R1 value comes from memory about once) and writes
+// 5 of M: 68 bytes of compulsory traffic (8 + 20 + 20 + 20) for ~100 float32
+// operations. The TPU kernel's windowed DMA, candidate-row loop and
 // 128-lane padding existed because the TPU has no fast per-element gather;
 // here each thread gathers its own corners through the read-only cache
 // (__ldg), and consecutive threads take consecutive pixels so the flow,

@@ -40,6 +40,12 @@ WINDOW = 24  # rows of the dynslice window
 MAX_N = 1 << 24  # trip counts below this are exact in float32
 BODIES = ("mul", "where", "take", "take_bf16", "two_takes", "packed_take_unpack")
 _MUL = f32(1.0001)
+# Float32 adds, multiplies and selects that one more iteration adds per
+# element, the accumulate included. Work on x0 alone (two_takes' x0 · 1.0001)
+# is done once per call and is not counted, nor are gathers (through shared
+# memory), conversions and bit operations.
+OPS_PER_ITER = {"mul": 3, "where": 3, "take": 2, "take_bf16": 2, "two_takes": 4,
+                "packed_take_unpack": 3}
 
 # Kernel launches per wrapper; `reset_launches` sets them to 0.
 LAUNCHES = {"loop_probe": 0, "dynslice": 0}
@@ -48,6 +54,19 @@ LAUNCHES = {"loop_probe": 0, "dynslice": 0}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def loop_probe_cost(body: str, rows: int, n: int) -> tuple[int, int]:
+    """(bytes, float32 operations) of one loop_probe call on a [rows, 128]
+    tile: x and idx read once, the output written once."""
+    x_bytes = 2 if body == "take_bf16" else 4
+    return rows * LANES * (x_bytes + 4 + 4), rows * LANES * n * OPS_PER_ITER[body]
+
+
+def dynslice_cost() -> tuple[int, int]:
+    """(bytes, float32 operations) of one dynslice call: the offset and the
+    bf16 window read, the float32 window written; widening is no arithmetic."""
+    return 4 + WINDOW * LANES * (2 + 4), 0
 
 
 def _bf16(v: float) -> float:

@@ -50,10 +50,30 @@ _REACH_X = 127  # horizontal reach of the reference's 3-tile lane window
 # Kernel launches per wrapper; `reset_launches` sets them to 0.
 LAUNCHES = {"warp_m": 0, "box_solve": 0}
 
+# Bytes per pixel each kernel must move, every input read once and every
+# output written once, in float32: warp_m reads R0 (5 planes), R1 (5) and
+# the flow (2) and writes M (5); box_solve reads M (5) and writes fx, fy (2).
+BYTES_PER_PIXEL = {"warp_m": 4 * (5 + 5 + 2 + 5), "box_solve": 4 * (5 + 2)}
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def kernel_bytes(name: str, b: int, h: int, w: int) -> int:
+    """Bytes kernel `name` must move for B frames of H×W."""
+    return BYTES_PER_PIXEL[name] * b * h * w
+
+
+def kernel_ops(name: str, b: int, h: int, w: int, winsize: int = 15) -> int:
+    """Float32 adds, multiplies and divides kernel `name` does for B frames of
+    H×W. warp_m: 101 per pixel (8 for the sample coordinates and weights, 55
+    for the bilinear sample of 5 planes, 18 for R2..R6, 6 for the taper, 14
+    for M). box_solve: 2r adds per pass and channel, 5 scalings and the
+    13-operation solve, 20r + 18 per pixel with r = winsize // 2."""
+    per_pixel = {"warp_m": 101, "box_solve": 20 * (winsize // 2) + 18}[name]
+    return per_pixel * b * h * w
 
 
 def quantize_r1_fast16(r1: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,7 @@ from opticalflowclustering_tpu_torch.features.dominant_color import (
 from opticalflowclustering_tpu_torch.features.grid import GridParams, grid_mean_hue
 from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams, farneback_flow
 from opticalflowclustering_tpu_torch.flow.render import render_flow_hsv_bgr
+from opticalflowclustering_tpu_torch.io.video import read_video_bgr
 from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
 from opticalflowclustering_tpu_torch.ops.polar import magnitude
 from opticalflowclustering_tpu_torch.runtime import resolve_device
@@ -116,10 +117,8 @@ def process_video_file(
     max_frames: int | None = None,
     device: str | torch.device = "cuda",
 ) -> dict[str, np.ndarray]:
-    """process_frames over a video decoded on the host by the JAX package's
-    decoder (numpy and cv2 only; it does not load jax)."""
-    from opticalflowclustering_tpu.io.video import read_video_bgr
-
+    """process_frames over a video decoded on the host by cv2
+    (`io.video.read_video_bgr`)."""
     return process_frames(read_video_bgr(path, max_frames), cfg, device)
 
 

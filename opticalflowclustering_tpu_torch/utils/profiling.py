@@ -18,6 +18,21 @@ from collections.abc import Callable
 
 import torch
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, at its 700 W power
+# limit): HBM3 at 3.35 TB/s, and 67 TFLOP/s in float32 outside the tensor
+# cores, which counts a multiply-add as two: 33.5 T adds or multiplies/s.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 33.5e12
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time in ms an H100 could take to move `nbytes` through its
+    memory and do `ops` float32 operations, and which of the two sets it,
+    "bytes" or "operations"."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
 
 class StageTimer:
     """Accumulates per-stage wall time, waiting for the card where asked."""

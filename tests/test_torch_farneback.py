@@ -131,11 +131,17 @@ def test_quantize_r1_fast16_bitwise():
 
 
 @pytest.mark.parametrize(
-    "hw,winsize", [((64, 128), 15), ((72, 300), 17), ((200, 136), 15), ((64, 128), 5)]
+    "hw,winsize",
+    [((64, 128), 15), ((72, 300), 17), ((200, 136), 15), ((64, 128), 5)]
+    # Every winsize the box_solve kernel takes, on frames narrower or lower
+    # than the window, and on the 720p pyramid's coarsest level.
+    + [(hw, ws) for hw in [(5, 7), (3, 40), (90, 160)] for ws in range(1, 18, 2)],
 )
 def test_box_solve_reference_matches_update_flow(hw, winsize):
-    """jfb._update_flow(m, winsize, False) ↔ kw.box_solve_reference and the
-    kw.box_solve wrapper on a CPU tensor: rtol/atol 1e-4."""
+    """jfb._update_flow(m, winsize, False), un-jitted ↔ kw.box_solve_reference
+    and the kw.box_solve wrapper on a CPU tensor: bitwise. Both run the
+    symmetric-pair box sum, the scaling and the solve in the same float32
+    order, which is what the CUDA kernel is held to on the card."""
     rng = np.random.default_rng(15)
     r0, r1, flow = _rand_case(rng, hw, 3.0, (2,))
     m = np.asarray(update_matrices_gather(r0, r1, flow))
@@ -143,7 +149,28 @@ def test_box_solve_reference_matches_update_flow(hw, winsize):
     for fn in (kw.box_solve_reference, kw.box_solve):
         fx, fy = fn(_cf(m), winsize)
         got = np.stack([fx.numpy(), fy.numpy()], axis=-1)
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_kernel_bytes_and_bounds():
+    """The bytes each pipeline kernel must move (68 per pixel for warp_m: R0,
+    R1, the flow and M; 28 for box_solve: M and the flow) and the bounds
+    chip_smoke.py prints beside their times at [16,5,720,1280]."""
+    from opticalflowclustering_tpu_torch.utils.profiling import bound_ms
+
+    assert kw.kernel_bytes("warp_m", 1, 1, 1) == 68
+    assert kw.kernel_bytes("box_solve", 1, 1, 1) == 28
+    assert kw.kernel_bytes("warp_m", 16, 720, 1280) == 68 * 14_745_600
+    assert kw.kernel_ops("box_solve", 1, 1, 1, 15) == 158
+    assert kw.kernel_ops("box_solve", 2, 3, 4, 1) == 18 * 24
+    assert kw.kernel_ops("warp_m", 1, 2, 2) == 404
+    ms, by = bound_ms(kw.kernel_bytes("box_solve", 16, 720, 1280),
+                      kw.kernel_ops("box_solve", 16, 720, 1280, 15))
+    assert by == "bytes" and ms == pytest.approx(0.12325, abs=1e-5)
+    ms, by = bound_ms(kw.kernel_bytes("warp_m", 16, 720, 1280),
+                      kw.kernel_ops("warp_m", 16, 720, 1280))
+    assert by == "bytes" and ms == pytest.approx(0.29931, abs=1e-5)
+    assert bound_ms(0, 33.5e9) == (pytest.approx(1.0), "operations")
 
 
 def test_update_flow_gaussian_window():

@@ -1,10 +1,13 @@
-"""The port stands apart from JAX: importing and running its main path and
-its probe path loads neither jax nor cv2 nor pandas, the state it carries
+"""The port stands apart from JAX: no source of the port imports jax or the
+JAX package (read with ast), importing and running its main path and its
+probe path loads neither jax nor cv2 nor pandas, its video decode equals the
+JAX package's and loads no module of it, the state it carries
 across from the JAX package (configs, constant tables) equals the original
 (opticalflowclustering_tpu_torch.convert ↔ the JAX modules that build the
 tables), and chip_smoke.py's probe phase runs end to end on the CPU with its
 kernel entries replaced by counted plain versions."""
 
+import ast
 import dataclasses
 import json
 import math
@@ -103,6 +106,102 @@ def test_probe_modules_import_no_jax_or_cv2():
     assert "LOADED []" in r.stdout, r.stdout
 
 
+def _port_sources():
+    port = os.path.join(REPO, "opticalflowclustering_tpu_torch")
+    for root, _, files in os.walk(port):
+        for name in sorted(files):
+            if name.endswith(".py"):
+                yield os.path.join(root, name)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _foreign_imports(path):
+    """(line, module) of every import in `path` of jax, jaxlib or the JAX
+    package (opticalflowclustering_tpu but not ..._torch), at any depth."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "opticalflowclustering_tpu"):
+                found.append((node.lineno, name))
+    return found
+
+
+def test_port_sources_import_nothing_of_jax(tmp_path):
+    """Read, not run: every .py of the port and chip_smoke.py, walked with
+    ast, imports neither jax nor jaxlib nor anything of the JAX package, also
+    inside functions, where an import-and-run probe does not reach."""
+    sources = list(_port_sources())
+    assert len(sources) > 30
+    bad = {os.path.relpath(p, REPO): f for p in sources if (f := _foreign_imports(p))}
+    assert bad == {}
+    # The walk finds imports nested in functions, and tells the port's own
+    # package from the JAX package.
+    probe = tmp_path / "probe.py"
+    probe.write_text(
+        "import opticalflowclustering_tpu_torch.io.video\n"
+        "def f():\n"
+        "    from opticalflowclustering_tpu.io.video import read_video_bgr\n"
+        "    import jax.numpy, jaxlib\n"
+    )
+    assert _foreign_imports(str(probe)) == [
+        (3, "opticalflowclustering_tpu.io.video"), (4, "jax.numpy"), (4, "jaxlib")]
+
+
+def test_read_video_bgr_equals_the_jax_packages():
+    """The port's io.video.read_video_bgr ↔ the JAX package's (cv2 path) on
+    the demo clip: array_equal, whole and cut to max_frames."""
+    from opticalflowclustering_tpu.io import video as jvideo
+    from opticalflowclustering_tpu_torch.io import video as tvideo
+
+    demo = os.path.join(REPO, "demo_out", "601_3.avi")
+    whole = tvideo.read_video_bgr(demo)
+    np.testing.assert_array_equal(whole, jvideo.read_video_bgr(demo))
+    assert whole.dtype == np.uint8 and whole.shape[1:] == (232, 220, 3)
+    np.testing.assert_array_equal(tvideo.read_video_bgr(demo, 4), whole[:4])
+    assert tvideo.is_lfs_pointer(demo) is False
+    with pytest.raises(FileNotFoundError):
+        tvideo.read_video_bgr(os.path.join(REPO, "demo_out", "no_such.avi"))
+
+
+_VIDEO_PROBE = """
+import sys
+import torch
+torch.set_num_threads(1)
+from opticalflowclustering_tpu_torch.pipeline import bounce
+cfg = bounce.PipelineConfig(chunk=2, flow=bounce.FarnebackParams(warp_mode="fast"))
+out = bounce.process_video_file("demo_out/601_3.avi", cfg, max_frames=3, device="cpu")
+assert out["hue_table"].shape == (2, 350), out["hue_table"].shape
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "opticalflowclustering_tpu")]
+print("LOADED", bad)
+"""
+
+
+def test_process_video_file_loads_no_jax_package_module():
+    """In a fresh interpreter: process_video_file decodes the demo clip with
+    the port's own io.video and runs it on the CPU; no module of jax, jaxlib
+    or the JAX package is loaded."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run(
+        [sys.executable, "-c", _VIDEO_PROBE],
+        cwd=REPO,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=300,
+    )
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "LOADED []" in r.stdout, r.stdout
+
+
 def test_chip_smoke_probe_phase_rehearsal(monkeypatch, capsys):
     """chip_smoke.probe_phase on the CPU at small sizes: the kernel entries
     are counted plain versions and the card timers a host clock. Every check
@@ -156,7 +255,8 @@ def test_chip_smoke_probe_phase_rehearsal(monkeypatch, capsys):
     assert [e["name"] for e in entries] == ["loop_probe", "dynslice"]
     for e in entries:
         assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-                "plain_ms"} <= set(e)
+                "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(e)
+        assert e["bound_ms"] > 0 and e["bound_by"] in ("bytes", "operations")
         assert e["route"] == "cuda" and os.path.isfile(os.path.join(REPO, e["source"]))
         assert e["launches"] == probes.LAUNCHES[e["name"]] and e["max_abs_err"] == 0.0
         for ref in e["replaces"].split(", "):
@@ -165,7 +265,8 @@ def test_chip_smoke_probe_phase_rehearsal(monkeypatch, capsys):
                 assert "def " in f.read().splitlines()[int(line) - 1], ref
     bodies = entries[0]["bodies"]
     assert sorted(bodies) == sorted(probes.BODIES)
-    assert all(b["ns_per_iter"] > 0 and b["plain_ns_per_iter"] > 0 for b in bodies.values())
+    assert all(b["ns_per_iter"] > 0 and b["plain_ns_per_iter"] > 0 and b["bound_ns_per_iter"] > 0
+               for b in bodies.values())
     json.dumps(entries)
 
 

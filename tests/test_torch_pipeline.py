@@ -120,3 +120,26 @@ def test_kmeangrids_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         tcli.main(base + ["--noyolo", "--nocontour", "--max-frames", "3"])
     assert not (tmp_path / "OutCSV").exists()
+
+
+def test_kmeangrids_cli_refuses_an_lfs_pointer_stub(tmp_path, monkeypatch):
+    """A Git-LFS pointer stub where the video should be: the port's
+    is_lfs_pointer tells it from real media as the JAX package's does, and the
+    CLI exits with a message before it decodes or writes anything."""
+    from opticalflowclustering_tpu.io.video import is_lfs_pointer as jax_is_lfs
+    from opticalflowclustering_tpu_torch.io.video import is_lfs_pointer
+
+    monkeypatch.chdir(tmp_path)
+    stub = tmp_path / "601_3.mp4"
+    stub.write_text(
+        "version https://git-lfs.github.com/spec/v1\n"
+        "oid sha256:0000000000000000000000000000000000000000000000000000000000000000\n"
+        "size 123\n"
+    )
+    for path in (str(stub), DEMO, str(tmp_path / "missing.mp4")):
+        assert is_lfs_pointer(path) == jax_is_lfs(path)
+    assert is_lfs_pointer(str(stub)) and not is_lfs_pointer(DEMO)
+    with pytest.raises(SystemExit, match="Git-LFS pointer stub"):
+        tcli.main(["-d", "OutImgs/v", "-c", "1", "-f", "a.csv", "--path", str(stub),
+                   "--noyolo", "--nocontour", "--device", "cpu"])
+    assert not (tmp_path / "OutCSV").exists() and not (tmp_path / "a.csv").exists()

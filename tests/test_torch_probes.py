@@ -266,3 +266,24 @@ def test_out_of_range_indices_are_clamped():
     idx[1] = -3
     got = probes.loop_probe("take", x, idx, 1)
     assert got[0].eq(127).all() and got[1].eq(0).all()
+
+
+def test_probe_costs_and_bounds():
+    """The bytes and float32 operations chip_smoke.py prices each probe call
+    at: x, idx and the output once for loop_probe, with OPS_PER_ITER[body]
+    per element and iteration; the offset and the window for dynslice."""
+    from opticalflowclustering_tpu_torch.utils.profiling import bound_ms
+
+    assert probes.OPS_PER_ITER == {"mul": 3, "where": 3, "take": 2, "take_bf16": 2,
+                                   "two_takes": 4, "packed_take_unpack": 3}
+    assert probes.loop_probe_cost("take", 80, 256) == (80 * 128 * 12, 80 * 128 * 256 * 2)
+    # two_takes: x0 + i, (x0 · 1.0001) + i, their sum and the accumulate; the
+    # loop-invariant x0 · 1.0001 is not charged per iteration.
+    assert probes.loop_probe_cost("two_takes", 80, 10)[1] == 80 * 128 * 10 * 4
+    # chip_smoke.py's per-iteration bound (one more iteration moves no byte).
+    per_iter_ns = bound_ms(0, probes.loop_probe_cost("two_takes", 80, 1)[1])[0] * 1e6
+    assert per_iter_ns == pytest.approx(1.2226, abs=1e-4)
+    assert probes.loop_probe_cost("take_bf16", 80, 1) == (80 * 128 * 10, 80 * 128 * 2)
+    assert probes.dynslice_cost() == (4 + 24 * 128 * 6, 0)
+    assert bound_ms(*probes.loop_probe_cost("mul", 80, 256))[1] == "operations"
+    assert bound_ms(*probes.dynslice_cost())[1] == "bytes"
