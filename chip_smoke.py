@@ -7,9 +7,14 @@ PyTorch version on the card (box-solve bit for bit at every odd winsize up to
 scripts (gather_cost_probe, profile_r4) at their full sizes, drives the
 bounce-feature pipeline (process_frames) at 1280x720 with both kernel warp
 modes, checks it against the same pipeline on CPU tensors, matches a bounce
-signature, and times the pipeline and each kernel, the pipeline kernels at
-each pyramid level beside their bounds (the least time the card could take:
-bytes over the HBM rate or operations over the float32 rate).
+signature, then drives the video-file paths at 1280x720 with their kernel
+launches counted: the stream's device loop through its prefetch thread
+(tables equal to process_frames'), the sequential and the dp×sp queue on a
+2×2 mesh of the card (artifacts equal), the temporal split (equal to the
+unsharded pipeline) and the findcosine CLI; and times the pipeline, the
+stream, the queues and each kernel, the pipeline kernels at each pyramid
+level beside their bounds (the least time the card could take: bytes over
+the HBM rate or operations over the float32 rate).
 
     python3 chip_smoke.py
 
@@ -17,13 +22,19 @@ Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails. On success the line before the last is a JSON object with one
 entry per kernel, and the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Imports torch and numpy only (no JAX, no cv2).
+Imports torch and numpy only (no JAX). Where cv2 is importable it also
+decodes demo_out/601_3.avi through the cv2 stream and feeds the queue from
+MJPG files; where it is not, the frames come from memory through the same
+prefetch thread and a stand-in for the queue's decoder.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 import json
+import os
 import sys
 import time
 
@@ -41,6 +52,8 @@ PLAIN_SLOPE_N = (64, 256)  # trip counts of the plain loops' per-iteration slope
 # frame or whose widths are no multiple of 4.
 BOX_WINSIZES = tuple(range(1, 18, 2))
 BOX_SHAPES = ((2, 72, 300), (3, 40, 100), (1, 5, 7), (1, 3, 40))
+QUEUE_CLIP = 17  # frames per queue clip: 16 pairs, one chunk each
+DEMO_FRAMES = None  # frames of demo_out/601_3.avi the cv2 stream check reads (None: all)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -169,6 +182,269 @@ def probe_phase(dev, stamp: str) -> list[dict]:
          "ms": g["dynslice_ms"], "plain_ms": dyn_plain_ms, "bound_ms": dyn_bound, "bound_by": dyn_by,
          "library_ms": None},
     ]
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def have_cv2() -> bool:
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def kernel_runs(n_pairs: int, chunk: int, h: int, w: int, params) -> int:
+    """Launches of each pipeline kernel that `process_frames` makes for
+    n_pairs pairs of h×w: one farneback_flow per chunk, and one launch per
+    pyramid level and iteration in each."""
+    from opticalflowclustering_tpu_torch.flow.farneback import pyramid_plan
+
+    return -(-n_pairs // chunk) * len(pyramid_plan(h, w, params)) * params.iterations
+
+
+def check_tables(got: dict, want: dict, tag: str) -> float:
+    """The tables of two runs over the same pairs: the integer tables (hue,
+    rgb_hue, centroids) bitwise equal and mean_magnitude within rtol 1e-6
+    (a float reduction may choose its order by the batch shape). Returns the
+    largest relative mean_magnitude difference."""
+    for k in ("hue_table", "rgb_hue_table", "centroids", "mean_magnitude"):
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        check(g.shape == w.shape and g.dtype == w.dtype, f"{tag} {k}: {g.shape} {g.dtype} vs {w.shape} {w.dtype}")
+        if k != "mean_magnitude":
+            check(np.array_equal(g, w), f"{tag} {k}: not bitwise equal ({int((g != w).sum())} entries differ)")
+    g, w = np.asarray(got["mean_magnitude"]), np.asarray(want["mean_magnitude"])
+    np.testing.assert_allclose(g, w, rtol=1e-6, err_msg=f"{tag} mean_magnitude")
+    return float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30)))
+
+
+def timed_s(dev, fn) -> float:
+    sync(dev)
+    t = time.perf_counter()
+    fn()
+    sync(dev)
+    return time.perf_counter() - t
+
+
+def stream_phase(dev, stamp: str, frames: np.ndarray, want: dict, cfg) -> dict:
+    """Phase 5b: process_video_stream's device loop over `frames` through the
+    prefetch thread (io.video.prefetch_chunks, the thread the cv2 stream
+    uses), checked against process_frames' tables of the same frames (`want`)
+    and timed beside it in turns. Where cv2 is importable, also the whole
+    stream (cv2 decode thread included) on demo_out/601_3.avi against
+    process_frames of the same decoded frames. Returns the launches."""
+    from opticalflowclustering_tpu_torch.io import video as io_video
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.pipeline.bounce import (
+        _stream_tables,
+        process_frames,
+        process_video_stream,
+    )
+
+    n, h, w = frames.shape[:3]
+
+    def stream():
+        with contextlib.closing(io_video.prefetch_chunks(iter(frames), cfg.chunk)) as chunks:
+            return _stream_tables(chunks, cfg, dev)
+
+    kw.reset_launches()
+    got = stream()
+    sync(dev)
+    launches = dict(kw.LAUNCHES)
+    runs = kernel_runs(n - 1, cfg.chunk, h, w, cfg.flow)
+    check(launches == {"warp_m": runs, "box_solve": runs}, f"stream: expected {runs} launches of each kernel, got {launches}")
+    check("flow_bgr" not in got and got["hue_table"].shape == (n - 1, cfg.grid.rows * cfg.grid.cols),
+          f"stream tables {sorted(got)} {got['hue_table'].shape}")
+    rel = check_tables(got, want, "stream vs process_frames")
+    print(f"stream {n}x{h}x{w} through the prefetch thread: launches {launches}; tables equal to "
+          f"process_frames' (integer tables bitwise, mean_magnitude rel diff {rel:.3g})")
+
+    if have_cv2():
+        demo = "demo_out/601_3.avi"
+        dec = io_video.read_video_bgr(demo, DEMO_FRAMES)
+        kw.reset_launches()
+        got_demo = process_video_stream(demo, cfg, DEMO_FRAMES, dev)
+        check(kw.LAUNCHES["warp_m"] > 0 and kw.LAUNCHES["box_solve"] > 0, "demo stream: kernels not launched")
+        check_tables(got_demo, process_frames(dec, cfg, dev), "demo stream (cv2) vs process_frames")
+        print(f"stream {demo} ({dec.shape[0]} frames, cv2 decode thread): tables equal to process_frames'")
+
+    feature_cfg = dataclasses.replace(cfg, emit_flow_bgr=False)
+    runners = {"process_frames": lambda: process_frames(frames, feature_cfg, dev), "stream": stream}
+    for fn in runners.values():  # warm-up
+        fn()
+    times = {k: [] for k in runners}
+    for _ in range(REPEATS):
+        for name, fn in runners.items():
+            times[name].append(timed_s(dev, fn))
+    for name, ts in times.items():
+        print(f"time {name} {n}x{h}x{w} warp_mode={cfg.flow.warp_mode}, tables only: "
+              f"{(n - 1) / float(np.median(ts)):.2f} pairs/s (median of {REPEATS}, in turns, runs "
+              f"{', '.join(f'{t:.3f}' for t in ts)} s) {stamp}")
+    return launches
+
+
+@contextlib.contextmanager
+def clip_files(tmp: str, clips: list[np.ndarray]):
+    """Paths of `clips` for the queue's decoder. With cv2: MJPG files written
+    under `tmp` and decoded by the real reader. Without it: paths that name
+    no file, served from memory by a stand-in for io.video.read_video_bgr
+    (the queue looks the decoder up there at call time)."""
+    from opticalflowclustering_tpu_torch.io import video as io_video
+
+    os.makedirs(os.path.join(tmp, "clips"), exist_ok=True)
+    paths = [os.path.join(tmp, "clips", f"clip{i}.avi") for i in range(len(clips))]
+    if have_cv2():
+        for p, c in zip(paths, clips):
+            io_video.write_video_mjpg(p, c, 30.0)
+        yield paths
+        return
+    by_path = dict(zip(paths, clips))
+    real = io_video.read_video_bgr
+
+    def from_memory(path, max_frames=None):
+        if path not in by_path:
+            raise FileNotFoundError(f"cannot open video: {path}")
+        return by_path[path][:max_frames]
+
+    io_video.read_video_bgr = from_memory
+    try:
+        yield paths
+    finally:
+        io_video.read_video_bgr = real
+
+
+def queue_phase(dev, stamp: str, clips: list[np.ndarray], cfg) -> dict:
+    """Phase 5c: process_video_queue and process_video_queue_dp on a 2×2
+    mesh of `dev` over `clips` (two batch, one is a leftover): artifacts
+    equal, the mesh path ran (LAST_DP_STATS), kernel launches as the design
+    implies; then videos/s of each queue, in turns. Returns the launches."""
+    import tempfile
+
+    from opticalflowclustering_tpu_torch.io import video as io_video
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.parallel.mesh import make_mesh
+    from opticalflowclustering_tpu_torch.pipeline import queue as vq
+
+    mesh = make_mesh({"dp": 2, "sp": 2}, [dev] * 4)
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    n, h, w = clips[0].shape[:3]
+    per_flow = kernel_runs(1, 1, h, w, cfg.flow)
+    with tempfile.TemporaryDirectory(prefix="ofc-smoke-") as tmp, clip_files(tmp, clips) as paths:
+        kw.reset_launches()
+        seq = vq.process_video_queue(paths, os.path.join(tmp, "seq"), cfg, device=dev)
+        sync(dev)
+        l_seq = dict(kw.LAUNCHES)
+        kw.reset_launches()
+        dpr = vq.process_video_queue_dp(paths, os.path.join(tmp, "dp"), mesh, cfg)
+        sync(dev)
+        l_dp = dict(kw.LAUNCHES)
+        stats = dict(vq.LAST_DP_STATS)
+        check(all(r.ok and r.attempts == 1 for r in seq + dpr) and len(dpr) == len(paths),
+              f"queue results: {[(r.video, r.ok, r.error) for r in seq + dpr]}")
+        check(stats["batches"] >= 1 and stats["batch_failures"] == 0, f"LAST_DP_STATS {stats}")
+        runs = len(paths) * kernel_runs(n - 1, cfg.chunk, h, w, cfg.flow)
+        singles = len(paths) - dp * stats["batches"]
+        runs_dp = per_flow * (dp * sp * stats["batches"]) + singles * kernel_runs(n - 1, cfg.chunk, h, w, cfg.flow)
+        check(l_seq == {"warp_m": runs, "box_solve": runs}, f"queue: expected {runs} launches, got {l_seq}")
+        check(l_dp == {"warp_m": runs_dp, "box_solve": runs_dp}, f"dp queue: expected {runs_dp} launches, got {l_dp}")
+        worst = 0.0
+        for r in seq:
+            a = vq.load_features(r.path)
+            b = vq.load_features(vq._artifact_path(os.path.join(tmp, "dp"), r.video))
+            check(a["hue_table"].shape == (n - 1, cfg.grid.rows * cfg.grid.cols), f"artifact {a['hue_table'].shape}")
+            worst = max(worst, check_tables(b, a, f"dp queue vs queue {os.path.basename(r.video)}"))
+        print(f"queue {len(paths)} x {n}x{h}x{w}: launches {l_seq}; dp queue on a {dp}x{sp} mesh of {dev}: "
+              f"launches {l_dp}, stats {stats}; artifacts equal (integer tables bitwise, mean_magnitude "
+              f"rel diff {worst:.3g})")
+
+        runners = {
+            "process_video_queue": lambda: vq.process_video_queue(
+                paths, os.path.join(tmp, "tseq"), cfg, resume=False, device=dev),
+            "process_video_queue_dp": lambda: vq.process_video_queue_dp(
+                paths, os.path.join(tmp, "tdp"), mesh, cfg, resume=False),
+            "decode alone (io.video.read_video_bgr)": lambda: [io_video.read_video_bgr(p) for p in paths],
+        }
+        times = {k: [] for k in runners}
+        for _ in range(REPEATS):
+            for name, fn in runners.items():
+                times[name].append(timed_s(dev, fn))
+        for name, ts in times.items():
+            print(f"time {name} {len(paths)} videos of {n}x{h}x{w}: "
+                  f"{len(paths) / float(np.median(ts)):.3f} videos/s (median of {REPEATS}, in turns, runs "
+                  f"{', '.join(f'{t:.3f}' for t in ts)} s; decode {'cv2' if have_cv2() else 'from memory'}) {stamp}")
+    return {"queue": l_seq, "dp_queue": l_dp}
+
+
+def temporal_phase(dev, videos: np.ndarray, cfg) -> dict:
+    """Phase 5d: sharded_hue_pipeline_videos on a 2×2 mesh of `dev` against
+    unsharded_hue_pipeline_videos on `dev`, with their launches."""
+    import torch
+
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.parallel.mesh import make_mesh
+    from opticalflowclustering_tpu_torch.parallel.temporal import (
+        sharded_hue_pipeline_videos,
+        unsharded_hue_pipeline_videos,
+    )
+
+    mesh = make_mesh({"dp": 2, "sp": 2}, [dev] * 4)
+    b, n, h, w = videos.shape[:4]
+    per_flow = kernel_runs(1, 1, h, w, cfg.flow)
+    kw.reset_launches()
+    got = sharded_hue_pipeline_videos(videos, mesh, grid=cfg.grid, params=cfg.flow, rb_swap=cfg.rb_swap)
+    sync(dev)
+    l_sh = dict(kw.LAUNCHES)
+    kw.reset_launches()
+    want = unsharded_hue_pipeline_videos(videos, cfg.grid, cfg.flow, cfg.rb_swap, device=dev)
+    sync(dev)
+    l_un = dict(kw.LAUNCHES)
+    check(l_sh == {"warp_m": 4 * per_flow, "box_solve": 4 * per_flow}, f"temporal sharded launches {l_sh}")
+    check(l_un == {"warp_m": per_flow, "box_solve": per_flow}, f"temporal unsharded launches {l_un}")
+    keys = ("hue_table", "rgb_hue_table", "centroids", "mean_magnitude")
+    cells = cfg.grid.rows * cfg.grid.cols
+    check(tuple(got[0].shape) == (b, n, cells) and tuple(got[2].shape) == (b, n, cells, 4),
+          f"temporal shapes {[tuple(t.shape) for t in got]}")
+    rel = check_tables({k: t.numpy() for k, t in zip(keys, got)},
+                       {k: t.cpu().numpy() for k, t in zip(keys, want)}, "temporal sharded vs unsharded")
+    check(bool(torch.isfinite(got[3]).all()) and float(got[3][:, : n - 1].max()) > 0.01, "temporal: no motion")
+    print(f"temporal {list(videos.shape)} on a 2x2 mesh of {dev}: launches {l_sh} (unsharded {l_un}); "
+          f"tables equal to the unsharded pipeline's (integer tables bitwise, mean_magnitude rel diff {rel:.3g})")
+    return {"temporal": l_sh, "temporal_unsharded": l_un}
+
+
+def findcosine_phase(series: np.ndarray, start: int, length: int) -> None:
+    """Phase 5e: the findcosine CLI on the card (`--device cuda`) over CSVs
+    of a hue series and of its window [start, start+length): the match must
+    be that window, with similarity 1."""
+    import io
+    import tempfile
+
+    from opticalflowclustering_tpu_torch.cli import findcosine
+
+    series = np.asarray(series, np.float32)
+    sig = series[start : start + length]
+    check(float(np.abs(sig).sum()) > 0, "hue series window is all zero")
+    with tempfile.TemporaryDirectory(prefix="ofc-smoke-") as tmp:
+        files = []
+        for name, values in (("signature.csv", sig), ("series.csv", series)):
+            files.append(os.path.join(tmp, name))
+            with open(files[-1], "w") as f:
+                f.writelines(f"{i},{float(v)!r}\n" for i, v in enumerate(values))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            findcosine.main(files + ["--device", "cuda"])
+    lines = out.getvalue().splitlines()
+    check(len(lines) == 4 and lines[0].split() == ["Vector", "sizes", "are:", str(length), str(len(series))],
+          f"findcosine printed {lines}")
+    sim, frame = float(lines[1].split(":")[1]), int(lines[3].split(":")[1])
+    check(sim >= 1 - 1e-6 and np.array_equal(series[frame : frame + length], sig),
+          f"findcosine: similarity {sim} at frame {frame}, window planted at {start}")
+    print(f"findcosine --device cuda: {' | '.join(lines)} (window planted at {start})")
 
 
 def main() -> int:
@@ -355,6 +631,26 @@ def main() -> int:
     check(bool(torch.equal(series[frame : frame + 5], sig)), f"bounce match frame {frame}")
     print(f"bounce match: similarity {sim:.7f} at frame {frame}")
 
+    # Phases 5b-5e: the video-file paths at 1280x720, each run with the
+    # launch counts set to 0 just before and read just after.
+    if have_cv2():
+        import cv2
+
+        source = (f"cv2 {cv2.__version__} (demo_out/601_3.avi through the cv2 stream; the queue's clips "
+                  "written as MJPG and decoded by io.video.read_video_bgr)")
+    else:
+        source = ("in-memory clips (scripts/clips.synth_frames) through the same prefetch thread and in "
+                  "place of the queue's decoder; cv2 is not importable")
+    print(f"decode source: {source}")
+    fast = PipelineConfig(flow=FarnebackParams(warp_mode="fast"))
+    path_launches = {"process_frames": launches["fast"]}
+    path_launches["stream"] = stream_phase(dev, stamp, frames, outs["fast"], fast)
+    step = QUEUE_CLIP - 1
+    clips = [frames[i * step : i * step + QUEUE_CLIP] for i in range(3)]
+    path_launches.update(queue_phase(dev, stamp, clips, fast))
+    path_launches.update(temporal_phase(dev, np.stack([frames[:16], frames[16:32]]), fast))
+    findcosine_phase(series.cpu().numpy(), 20, 5)
+
     # Phase 6: times on the card.
     def pipeline_fps(mode):
         cfg = PipelineConfig(emit_flow_bgr=False, flow=FarnebackParams(warp_mode=mode))
@@ -428,11 +724,13 @@ def main() -> int:
         {"name": "warp_m", "route": "cuda", "source": src + "warp_m.cu",
          "replaces": "opticalflowclustering_tpu/kernels/warp.py:177",
          "launches": launches["fast"]["warp_m"], "max_abs_err": err["warp_m"],
-         **kernel_times["warp_m"], "library_ms": None},
+         **kernel_times["warp_m"], "library_ms": None,
+         "launches_by_path": {k: v["warp_m"] for k, v in path_launches.items()}},
         {"name": "box_solve", "route": "cuda", "source": src + "box_solve.cu",
          "replaces": "opticalflowclustering_tpu/kernels/warp.py:338",
          "launches": launches["fast"]["box_solve"], "max_abs_err": err["box_solve"],
-         **kernel_times["box_solve"], "library_ms": None},
+         **kernel_times["box_solve"], "library_ms": None,
+         "launches_by_path": {k: v["box_solve"] for k, v in path_launches.items()}},
     ] + probe_kernels
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -16,13 +16,17 @@ Layout (mirrors the JAX package):
               and their plain versions
   features/   grid pooling and the per-cell dominant colour
   cluster/    the sliding-window signature matcher
-  pipeline/   the bounce-feature pipeline (chunk_step, process_frames)
+  pipeline/   the bounce-feature pipeline (chunk_step, process_frames,
+              process_video_stream) and the multi-video queue
+  parallel/   device meshes, the dp×sp split of the pipeline, and the
+              multi-process layer on torch.distributed
+  io/         video decode and encode on the host, the prefetch thread
   compat/     byte-compatible CSV writers
-  cli/        the kmeangrids entry point
+  cli/        kmeangrids, computeopticalflow, findcosine, processqueue
   scripts/    the probe scripts (gather_cost_probe, profile_r4) and the
               bench clips
   utils/      timing and tracing (StageTimer, ThroughputMeter, trace_to,
-              CUDA-event timers)
+              CUDA-event timers) and logging
   convert.py  carries configs and constant tables across from the JAX side
 
 This package imports torch and numpy only; it never imports jax.

@@ -7,9 +7,11 @@
 
 Writes `OutCSV/<video>.csv` (hue table) and appends the per-cell rows to the
 -f CSV in the addnew.csv format. The port runs the video path without
-overlays; YOLO/contour overlays, `--stream` and the phase-2-only cell-tree
-path (which the JAX CLI also takes when `--path` is a Git-LFS pointer stub)
-are not ported yet and exit with a message saying so.
+overlays, decoded at once or, with `--stream`, chunk by chunk on a thread
+that overlaps the card (`pipeline.bounce.process_video_stream`; the same
+tables). YOLO/contour overlays and the phase-2-only cell-tree path (which
+the JAX CLI also takes when `--path` is a Git-LFS pointer stub) are not
+ported yet and exit with a message saying so.
 """
 
 from __future__ import annotations
@@ -36,7 +38,12 @@ def parse_arguments(argv=None):
         "disk-roundtrip order",
     )
     ap.add_argument(
-        "--stream", action="store_true", help="not ported yet (exits with a message)"
+        "--stream",
+        action="store_true",
+        help="decode-overlapped streaming pipeline (pipeline.bounce."
+        "process_video_stream): background-thread decode, pinned-buffer "
+        "copies overlapped with the card, constant host memory for long "
+        "videos; the same tables (pass --noyolo --nocontour)",
     )
     ap.add_argument(
         "--warp-mode",
@@ -64,8 +71,6 @@ def main(argv=None):
             "YOLO/contour overlays are not ported to the PyTorch package yet; "
             "pass --noyolo --nocontour"
         )
-    if args["stream"]:
-        raise SystemExit("--stream is not ported to the PyTorch package yet")
     if not os.path.isfile(args["path"]):
         raise SystemExit(
             f"{args['path']} is not a video file; the phase-2-only cell-tree "
@@ -89,6 +94,7 @@ def main(argv=None):
     from opticalflowclustering_tpu_torch.pipeline.bounce import (
         PipelineConfig,
         process_video_file,
+        process_video_stream,
     )
 
     cfg = PipelineConfig(
@@ -96,7 +102,8 @@ def main(argv=None):
         emit_flow_bgr=False,
         flow=FarnebackParams(warp_mode=args["warp_mode"]),
     )
-    out = process_video_file(args["path"], cfg, args["max_frames"], args["device"])
+    run = process_video_stream if args["stream"] else process_video_file
+    out = run(args["path"], cfg, args["max_frames"], args["device"])
     hue_table = out["hue_table"]
 
     video_name = os.path.basename(args["dir"].rstrip("/\\"))

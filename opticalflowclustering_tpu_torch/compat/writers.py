@@ -8,6 +8,7 @@ writes for float64 columns, so the port needs no pandas.
 - `OutCSV/<video>.csv`: header `cell_0..cell_N-1`, integer hue rows.
 - `cluster_centers.csv` / `addnew.csv`: rows
   `name,[ 12.  34.  56.   0.],[[[h s v]]],hue` (stringified numpy arrays).
+- `<video>_rgb_values.csv`: the same header, float hue strings ("12.0").
 - `<video>_opticalFlow.csv`: pandas default-index frame / mean-magnitude rows.
 """
 
@@ -31,6 +32,18 @@ def write_hue_table_csv(path: str, hue_table: np.ndarray) -> None:
         w = csv.writer(f, lineterminator="\n")
         w.writerow([f"cell_{i}" for i in range(hue_table.shape[1])])
         w.writerows(row.tolist() for row in hue_table)
+
+
+def write_rgb_values_csv(path: str, hue_table: np.ndarray) -> None:
+    """`*_rgb_values.csv` contract (`drawGridsAndOutputCSVChange.py:135-141`):
+    [frames, cells] hues as float64 strings ("12.0") under a cell_i header,
+    as pandas writes a float64 frame; NaN is written empty."""
+    hue_table = np.asarray(hue_table, dtype=np.float64)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow([f"cell_{i}" for i in range(hue_table.shape[1])])
+        for row in hue_table.tolist():
+            w.writerow(["" if math.isnan(v) else repr(v) for v in row])
 
 
 def append_cluster_centers_rows(

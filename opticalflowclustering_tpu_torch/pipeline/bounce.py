@@ -9,12 +9,16 @@
 Frame pairs are independent, so a video goes through in chunks of
 `cfg.chunk` pairs: each chunk is copied to the device once, runs
 `chunk_step` there, and only its tables (and the rendered flow, when asked
-for) come back to the host.
+for) come back to the host. `process_video_stream` also overlaps the host
+with the card: a thread decodes the next chunk while the card computes the
+current one, and chunk k's tables are copied back only after chunk k+1 has
+been enqueued.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Iterable
 
 import numpy as np
 import torch
@@ -28,7 +32,7 @@ from opticalflowclustering_tpu_torch.features.dominant_color import (
 from opticalflowclustering_tpu_torch.features.grid import GridParams, grid_mean_hue
 from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams, farneback_flow
 from opticalflowclustering_tpu_torch.flow.render import render_flow_hsv_bgr
-from opticalflowclustering_tpu_torch.io.video import read_video_bgr
+from opticalflowclustering_tpu_torch.io import video as io_video
 from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
 from opticalflowclustering_tpu_torch.ops.polar import magnitude
 from opticalflowclustering_tpu_torch.runtime import resolve_device
@@ -119,7 +123,98 @@ def process_video_file(
 ) -> dict[str, np.ndarray]:
     """process_frames over a video decoded on the host by cv2
     (`io.video.read_video_bgr`)."""
-    return process_frames(read_video_bgr(path, max_frames), cfg, device)
+    return process_frames(io_video.read_video_bgr(path, max_frames), cfg, device)
+
+
+def process_video_stream(
+    path: str,
+    cfg: PipelineConfig = PipelineConfig(),
+    max_frames: int | None = None,
+    device: str | torch.device = "cuda",
+) -> dict[str, np.ndarray]:
+    """Decode-inclusive pipeline over a video file on disk: a background
+    thread decodes the next chunk while the card computes the current one
+    (`io.video.stream_video_chunks`), unlike the reference's loop, which
+    decodes inside its hot loop (`KmeanGrids.py:156,180-185`).
+
+    Feature-only whatever `cfg.emit_flow_bgr` says: the same keys and dtypes
+    as `process_frames` without the rendered flow (hue_table uint8,
+    rgb_hue_table float32, centroids int32, mean_magnitude float32), and the
+    same values, since chunks share their overlap frame and every stage
+    after the flow is per pair. Fewer than 2 frames raise ValueError."""
+    dev = resolve_device(device)
+    chunks = io_video.stream_video_chunks(path, cfg.chunk, overlap=1, max_frames=max_frames)
+    try:
+        tables = _stream_tables(chunks, cfg, dev)
+    finally:
+        chunks.close()
+    if tables is None:
+        raise ValueError(f"need at least 2 frames in {path}")
+    return tables
+
+
+@torch.inference_mode()
+def _stream_tables(
+    chunks: Iterable[tuple[np.ndarray, int]], cfg: PipelineConfig, dev: torch.device
+) -> dict[str, np.ndarray] | None:
+    """The device loop of `process_video_stream`, run on the caller's thread
+    over ([C+1, H, W, 3] uint8, n_valid) batches of one fixed shape (from
+    `io.video.prefetch_chunks`); None when there is no batch.
+
+    On a CUDA device the host and the card overlap twice over. Each batch is
+    staged in one of two pinned host buffers and copied up with
+    `non_blocking`; its tables are copied down with `non_blocking` into one
+    of two pinned table buffers; and chunk k's tables are read only after
+    chunk k+1 has been enqueued. An event per buffer guards each reuse: the
+    host waits for a buffer's last upload before it refills it, and for a
+    chunk's downloads before it reads them. On the CPU the loop runs the same
+    steps synchronously."""
+    cfg = dataclasses.replace(cfg, emit_flow_bgr=False)
+    cuda = dev.type == "cuda"
+    staged = [None, None]  # pinned copies of the last two batches
+    uploaded = [None, None]  # event: the slot's upload has finished
+    fetched = [None, None]  # (pinned tables, event: their download has finished)
+    parts: list[dict[str, np.ndarray]] = []
+    pending = None  # (slot, tables, n_valid) of the chunk not yet read
+
+    def read(slot, tables, n_valid):
+        if cuda:
+            fetched[slot][1].synchronize()
+        parts.append({k: v[:n_valid].numpy().copy() for k, v in tables.items()})
+
+    for k, (batch, n_valid) in enumerate(chunks):
+        slot = k % 2
+        host = torch.from_numpy(batch)
+        if cuda:
+            if staged[slot] is None:
+                staged[slot] = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+            else:
+                uploaded[slot].synchronize()
+            staged[slot].copy_(host)
+            host = staged[slot]
+        frames = host.to(dev, non_blocking=True)
+        if cuda:
+            uploaded[slot] = torch.cuda.Event()
+            uploaded[slot].record(torch.cuda.current_stream(dev))
+        out = chunk_step(frames, cfg, dev)
+        if cuda:
+            if fetched[slot] is None:
+                fetched[slot] = (
+                    {n: torch.empty(v.shape, dtype=v.dtype, pin_memory=True) for n, v in out.items()},
+                    torch.cuda.Event(),
+                )
+            tables, done = fetched[slot]
+            for n, v in out.items():
+                tables[n].copy_(v, non_blocking=True)
+            done.record(torch.cuda.current_stream(dev))
+            out = tables
+        if pending is not None:
+            read(*pending)
+        pending = (slot, out, n_valid)
+    if pending is None:
+        return None
+    read(*pending)
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
 @torch.inference_mode()

@@ -141,6 +141,11 @@ def test_port_sources_import_nothing_of_jax(tmp_path):
     inside functions, where an import-and-run probe does not reach."""
     sources = list(_port_sources())
     assert len(sources) > 30
+    port = os.path.join(REPO, "opticalflowclustering_tpu_torch")
+    for rel in ("io/video.py", "pipeline/queue.py", "parallel/mesh.py", "parallel/temporal.py",
+                "parallel/multihost.py", "cli/computeopticalflow.py", "cli/findcosine.py",
+                "cli/processqueue.py", "utils/logging.py"):
+        assert os.path.join(port, rel) in sources, rel
     bad = {os.path.relpath(p, REPO): f for p in sources if (f := _foreign_imports(p))}
     assert bad == {}
     # The walk finds imports nested in functions, and tells the port's own
@@ -330,3 +335,127 @@ def test_constant_tables_equal_the_jax_originals(hw):
     for key, table in tables.items():
         assert table.dtype == want[key].dtype, key
         np.testing.assert_array_equal(table, want[key], err_msg=key)
+
+
+_VIDEO_PATH_PROBE = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from opticalflowclustering_tpu_torch.cli import computeopticalflow, findcosine, processqueue
+from opticalflowclustering_tpu_torch.io import video
+from opticalflowclustering_tpu_torch.parallel import mesh, multihost, temporal
+from opticalflowclustering_tpu_torch.pipeline import bounce, queue
+from opticalflowclustering_tpu_torch.utils import logging
+frames = np.random.default_rng(0).integers(0, 256, (1, 4, 64, 64, 3), dtype=np.uint8)
+m = mesh.make_mesh({"dp": 1, "sp": 2}, ["cpu"] * 2)
+grid = bounce.GridParams(rows=2, cols=2)
+params = bounce.FarnebackParams(levels=1, warp_mode="fast")
+hue = temporal.sharded_hue_pipeline_videos(frames, m, grid=grid, params=params)[0]
+assert tuple(hue.shape) == (1, 4, 4), hue.shape
+cfg = bounce.PipelineConfig(grid=grid, flow=params, chunk=2)
+out = bounce._stream_tables(video.prefetch_chunks(iter(frames[0]), 2), cfg, torch.device("cpu"))
+assert out["hue_table"].shape == (3, 4)
+bad = [m for m in ("jax", "jaxlib", "cv2", "pandas") if m in sys.modules]
+print("LOADED", bad)
+"""
+
+
+def test_video_path_modules_import_no_jax_cv2_or_pandas():
+    """In a fresh interpreter: import the video-file paths' modules (the
+    stream, the queue, parallel, the three new CLIs, logging), run the
+    temporal split and the stream's device loop on frames from memory on
+    the CPU; jax, cv2 and pandas stay unloaded."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run(
+        [sys.executable, "-c", _VIDEO_PATH_PROBE],
+        cwd=REPO,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=300,
+    )
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "LOADED []" in r.stdout, r.stdout
+
+
+def _rehearse_on_cpu(monkeypatch):
+    """chip_smoke's new phases on the CPU: the kernel entries are counted
+    plain versions, "cuda" resolves to the CPU, one timing repeat, and the
+    cv2 demo check reads 5 frames."""
+    import chip_smoke
+    from opticalflowclustering_tpu_torch import runtime
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.pipeline import bounce
+
+    for name, plain in (("warp_m", kw.warp_m_reference), ("box_solve", kw.box_solve_reference)):
+        def run(*args, name=name, plain=plain):
+            kw.LAUNCHES[name] += 1
+            return plain(*args)
+
+        monkeypatch.setattr(kw, name, run)
+    real = runtime.resolve_device
+
+    def to_cpu(name):
+        return real("cpu" if torch.device(name).type == "cuda" else name)
+
+    monkeypatch.setattr(runtime, "resolve_device", to_cpu)
+    monkeypatch.setattr(bounce, "resolve_device", to_cpu)
+    monkeypatch.setattr(chip_smoke, "REPEATS", 1)
+    monkeypatch.setattr(chip_smoke, "DEMO_FRAMES", 5)
+    torch.set_num_threads(1)
+    return chip_smoke, bounce, kw
+
+
+def test_chip_smoke_stream_and_findcosine_phases_rehearsal(monkeypatch, capsys):
+    """chip_smoke.stream_phase and findcosine_phase on a 7-frame 288×512
+    clip at chunk 4 (two chunks, the second zero-padded): the stream's
+    launches are the 2 chunks × 4 levels × 3 iterations the check expects,
+    its tables equal process_frames', the cv2 branch streams the demo clip,
+    both paths are timed, and findcosine (asked for cuda) finds the planted
+    window."""
+    from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
+
+    chip_smoke, bounce, kw = _rehearse_on_cpu(monkeypatch)
+    dev = torch.device("cpu")
+    frames = synth_frames(7, 288, 512)
+    cfg = bounce.PipelineConfig(chunk=4, flow=bounce.FarnebackParams(warp_mode="fast"))
+    want = bounce.process_frames(frames, cfg, dev)
+    launches = chip_smoke.stream_phase(dev, "[cpu rehearsal]", frames, want, cfg)
+    assert launches == {"warp_m": 24, "box_solve": 24}
+    series = want["hue_table"].astype(np.float32).mean(axis=1)
+    chip_smoke.findcosine_phase(series, 2, 3)
+    out = capsys.readouterr().out
+    for tag in ("stream 7x288x512 through the prefetch thread", "601_3.avi (5 frames, cv2 decode thread)",
+                "time process_frames 7x288x512", "time stream 7x288x512", "findcosine --device cuda"):
+        assert tag in out, tag
+
+
+def test_chip_smoke_queue_and_temporal_phases_rehearsal_without_cv2(monkeypatch, capsys):
+    """chip_smoke.queue_phase and temporal_phase as on a machine without
+    cv2: the queue's decoder is the in-memory stand-in (and is put back
+    after), three 3-frame 288×512 clips give one dp batch and one
+    leftover with the launches the design implies (queue 3 × 12, dp queue
+    4 blocks × 12 + 12), and the 2×2 temporal split equals the unsharded
+    pipeline."""
+    from opticalflowclustering_tpu_torch.io import video as io_video
+    from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
+
+    chip_smoke, bounce, kw = _rehearse_on_cpu(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "have_cv2", lambda: False)
+    real_read = io_video.read_video_bgr
+    dev = torch.device("cpu")
+    cfg = bounce.PipelineConfig(chunk=4, flow=bounce.FarnebackParams(warp_mode="fast"))
+    clips = [synth_frames(3, 288, 512, seed=s) for s in range(3)]
+    launches = chip_smoke.queue_phase(dev, "[cpu rehearsal]", clips, cfg)
+    assert io_video.read_video_bgr is real_read
+    assert launches == {"queue": {"warp_m": 36, "box_solve": 36}, "dp_queue": {"warp_m": 60, "box_solve": 60}}
+    videos = np.stack([synth_frames(2, 288, 512, seed=s) for s in (4, 5)])
+    launches = chip_smoke.temporal_phase(dev, videos, cfg)
+    assert launches == {"temporal": {"warp_m": 48, "box_solve": 48},
+                        "temporal_unsharded": {"warp_m": 12, "box_solve": 12}}
+    out = capsys.readouterr().out
+    for tag in ("dp queue on a 2x2 mesh of cpu", "'batches': 1", "decode from memory",
+                "time process_video_queue 3 videos", "time process_video_queue_dp 3 videos",
+                "temporal [2, 2, 288, 512, 3] on a 2x2 mesh"):
+        assert tag in out, tag

@@ -112,13 +112,15 @@ def test_kmeangrids_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     base = ["-d", "OutImgs/v", "-c", "1", "-f", "a.csv", "--path", DEMO]
     with pytest.raises(SystemExit, match="overlays"):
         tcli.main(base + ["--nocontour"])
-    with pytest.raises(SystemExit, match="--stream"):
-        tcli.main(base + ["--noyolo", "--nocontour", "--stream"])
+    with pytest.raises(SystemExit, match="overlays"):  # --stream is feature-only
+        tcli.main(base + ["--noyolo", "--stream"])
     with pytest.raises(SystemExit, match="cell-tree"):
         tcli.main(["-d", "OutImgs/v", "-c", "1", "-f", "a.csv", "--path", "missing.mp4", "--noyolo", "--nocontour"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         tcli.main(base + ["--noyolo", "--nocontour", "--max-frames", "3"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        tcli.main(base + ["--noyolo", "--nocontour", "--stream"])
     assert not (tmp_path / "OutCSV").exists()
 
 
