@@ -11,10 +11,16 @@ signature, then drives the video-file paths at 1280x720 with their kernel
 launches counted: the stream's device loop through its prefetch thread
 (tables equal to process_frames'), the sequential and the dp×sp queue on a
 2×2 mesh of the card (artifacts equal), the temporal split (equal to the
-unsharded pipeline) and the findcosine CLI; and times the pipeline, the
-stream, the queues and each kernel, the pipeline kernels at each pyramid
-level beside their bounds (the least time the card could take: bytes over
-the HBM rate or operations over the float32 rate).
+unsharded pipeline) and the findcosine CLI; then the clustering and model
+paths at 1280x720, each against the same function on the CPU: kmeans_batched
+over the 16,800 cells of the rendered flow frames, quantize_colors, the
+colorkmeans CLI, FlowCellNet serving (detect_windows on every frame, the
+classify, detect and realtime CLIs), SmallCNN, the trainbounce CLI, and the
+fused dp×sp train step on a 2×2 and a 1×1 mesh of the card with its kernel
+launches counted; and times the pipeline, the stream, the queues, the model
+paths and each kernel, the pipeline kernels at each pyramid level beside
+their bounds (the least time the card could take: bytes over the HBM rate
+or operations over the float32 rate).
 
     python3 chip_smoke.py
 
@@ -54,6 +60,7 @@ BOX_WINSIZES = tuple(range(1, 18, 2))
 BOX_SHAPES = ((2, 72, 300), (3, 40, 100), (1, 5, 7), (1, 3, 40))
 QUEUE_CLIP = 17  # frames per queue clip: 16 pairs, one chunk each
 DEMO_FRAMES = None  # frames of demo_out/601_3.avi the cv2 stream check reads (None: all)
+REALTIME_FRAMES = 75  # --max-frames of the realtime CLI on demo_out/601_3.avi
 
 
 def check(cond: bool, msg: str) -> None:
@@ -447,6 +454,376 @@ def findcosine_phase(series: np.ndarray, start: int, length: int) -> None:
     print(f"findcosine --device cuda: {' | '.join(lines)} (window planted at {start})")
 
 
+def cell_points(flow_bgr, grid):
+    """Every grid cell of the [n, H, W, 3] uint8 frames (a tensor), cut to
+    its top-left 50×50 crop (smaller where the grid step is), through
+    the RGBA preprocess of the k-means path → [n·cells, cell², 4] float32 on
+    the frames' device."""
+    import torch
+
+    from opticalflowclustering_tpu_torch.features.dominant_color import preprocess_cells_rgba
+
+    n, h, w = flow_bgr.shape[:3]
+    ys, xs = grid.steps(h, w)
+    c = min(50, ys, xs)
+    f = flow_bgr[:, : grid.rows * ys, : grid.cols * xs].reshape(n, grid.rows, ys, grid.cols, xs, 3)
+    cells = f[:, :, :c, :, :c].permute(0, 1, 3, 2, 4, 5).reshape(-1, c, c, 3)
+    return preprocess_cells_rgba(cells, rb_swap=True).reshape(cells.shape[0], c * c, 4).to(torch.float32)
+
+
+def kmeans_phase(dev, stamp: str, flow_bgr: np.ndarray) -> None:
+    """Phase 5f: kmeans_batched at k=3, n_iter 30 over every cell of the
+    rendered flow frames (RGBA, 50×50 crops; at 720p 48 × 350 = 16,800
+    cells, 168 M floats), timed on the card as cells/s; and the Lloyd loop
+    on a spread subset of the cells run on the CPU from the same ++ centres:
+    each cell's inertia within rel 1e-4, labels agreeing on ≥ 99.9%. The
+    inertia is Σ‖x − c(x)‖² of each side's centres and labels, summed in
+    float64 (the expanded ‖x‖² − 2x·c + ‖c‖² that assigns the labels
+    cancels to within ~0.02 of 0 at pixel values ~255, which is most of a
+    nearly flat cell's inertia)."""
+    import torch
+
+    from opticalflowclustering_tpu_torch.cluster import kmeans as km
+    from opticalflowclustering_tpu_torch.features.grid import GridParams
+
+    x = cell_points(torch.from_numpy(flow_bgr).to(dev), GridParams())
+    b, p, _ = x.shape
+    check(b == flow_bgr.shape[0] * 350, f"k-means cells {tuple(x.shape)}")
+    centers, labels = km.kmeans_batched(x, 3, torch.Generator().manual_seed(0))  # warm-up
+    times = []
+    for _ in range(REPEATS):
+        times.append(timed_s(dev, lambda: km.kmeans_batched(x, 3, torch.Generator().manual_seed(0))))
+    check(tuple(centers.shape) == (b, 3, 4) and tuple(labels.shape) == (b, p), "kmeans_batched shapes")
+    check(bool(torch.isfinite(centers).all()), "kmeans_batched: non-finite centres")
+    # kmeans_batched drew these ++ centres from the same seed.
+    init = km._plusplus_init(x, 3, torch.Generator().manual_seed(0))
+    sub = torch.arange(0, b, max(b // 512, 1), device=dev)
+    xs = x[sub].cpu()
+    c_cpu, l_cpu, _ = km._lloyd(xs, init[sub].cpu(), 30)
+
+    def inertia(c, lab):
+        own = torch.gather(c.double(), 1, lab[..., None].expand(-1, -1, xs.shape[-1]))
+        return ((xs.double() - own) ** 2).sum(dim=(-2, -1))
+
+    jc, jg = inertia(c_cpu, l_cpu), inertia(centers[sub].cpu(), labels[sub].cpu())
+    rel = float(((jg - jc).abs() / jc.clamp_min(1.0)).max())
+    agree = float((labels[sub].cpu() == l_cpu).double().mean())
+    check(rel <= 1e-4, f"k-means inertia card vs CPU: max rel diff {rel}")
+    check(agree >= 0.999, f"k-means labels card vs CPU agree on {agree}")
+    t = float(np.median(times))
+    print(f"kmeans_batched k=3 n_iter=30 over {b} cells x {p} px x 4 ({b * p * 4 / 1e6:.1f} M floats): "
+          f"card vs CPU on {len(sub)} cells from the same ++ centres: max inertia rel diff {rel:.3g} "
+          f"(tolerance 1e-4), labels agree {agree:.6f} (tolerance 0.999)")
+    print(f"time kmeans_batched {b} cells: {b / t:.1f} cells/s ({t * 1e3:.1f} ms, median of {REPEATS}, "
+          f"runs {', '.join(f'{v * 1e3:.1f}' for v in times)} ms) {stamp}")
+
+
+def quantize_phase(dev, stamp: str, frame: np.ndarray) -> None:
+    """Phase 5g: quantize_colors on one frame at k=8, both methods, on the
+    card and on the CPU with the same draws: ≤ 0.1% of pixels more than 3
+    codes apart. A float rounding may move a centre across a rounding
+    boundary (its pixels then differ by a code or two after lab2bgr) or a
+    pixel to another centre at a near-tie (that pixel differs by more).
+    Each is timed on the card."""
+    import torch
+
+    from opticalflowclustering_tpu_torch.extras.quantize import quantize_colors
+
+    h, w = frame.shape[:2]
+    img = torch.from_numpy(frame)
+    for method in ("lloyd", "minibatch"):
+        def run(src, m=method):
+            return quantize_colors(src, 8, torch.Generator().manual_seed(0), method=m)
+
+        card = run(img.to(dev)).cpu().numpy()
+        cpu = run(img).numpy()
+        gap = np.abs(card.astype(np.int16) - cpu.astype(np.int16)).max(-1)
+        same, far = float((gap == 0).mean()), float((gap > 3).mean())
+        colours = len(np.unique(card.reshape(-1, 3), axis=0))
+        check(card.shape == frame.shape and colours <= 8, f"quantize {method}: {card.shape}, {colours} colours")
+        check(far <= 1e-3, f"quantize {method}: card vs CPU pixels more than 3 codes apart {far}")
+        times = [timed_s(dev, lambda: run(img.to(dev))) for _ in range(REPEATS)]
+        t = float(np.median(times))
+        print(f"quantize_colors {w}x{h} k=8 method={method}: {colours} colours; card vs CPU pixels equal "
+              f"{same:.6f}, more than 3 codes apart {far:.6f} (tolerance 0.001), largest gap {int(gap.max())}; time {t * 1e3:.1f} ms ({h * w / t / 1e6:.1f} Mpx/s, median of "
+              f"{REPEATS}) {stamp}")
+
+
+def run_cli(main, argv):
+    """`main(argv)` of a CLI in-process: (its printed lines, what it returned)."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = main(argv)
+    return out.getvalue().splitlines(), result
+
+
+def colorkmeans_phase(dev, stamp: str, flow_bgr: np.ndarray, tmp: str) -> None:
+    """Phase 5h: the colorkmeans CLI (`-d`, --device cuda) over a directory of
+    50×50 PNG cells cut from the rendered flow frames, at k=1 and k=3,
+    against the same CLI on the CPU: k=1 CSVs byte-equal; k=3 (same ++
+    draws, card vs CPU Lloyd) every centroid channel within 2 (a centre
+    near .5 may round the other way)."""
+    import cv2
+
+    from opticalflowclustering_tpu_torch.cli import colorkmeans
+    from opticalflowclustering_tpu_torch.features.grid import GridParams
+
+    n = min(flow_bgr.shape[0], 4)
+    h, w = flow_bgr.shape[1:3]
+    ys, xs = GridParams().steps(h, w)
+    c = min(50, ys, xs)
+    d = os.path.join(tmp, "cells")
+    os.makedirs(d)
+    k = 0
+    for f in flow_bgr[:n]:
+        for r in range(GridParams().rows):
+            for q in range(GridParams().cols):
+                k += 1
+                cv2.imwrite(os.path.join(d, f"{k}.png"), f[r * ys : r * ys + c, q * xs : q * xs + c])
+    for clusters in (1, 3):
+        csv = {name: os.path.join(tmp, f"ckm{clusters}_{name}.csv") for name in ("cuda", "cpu")}
+        t0 = time.perf_counter()
+        lines, _ = run_cli(colorkmeans.main, ["-d", d, "-c", str(clusters), "-f", csv["cuda"], "--device", "cuda"])
+        t = time.perf_counter() - t0
+        ref, _ = run_cli(colorkmeans.main, ["-d", d, "-c", str(clusters), "-f", csv["cpu"], "--device", "cpu"])
+        check(len(lines) == k, f"colorkmeans k={clusters} printed {len(lines)} rows")
+        if clusters == 1:
+            with open(csv["cuda"], "rb") as a, open(csv["cpu"], "rb") as b:
+                check(a.read() == b.read(), "colorkmeans k=1: card and CPU CSVs differ")
+            same = "CSV byte-equal to the CPU run's"
+        else:
+            def cents(rows):
+                return np.array([[float(v) for v in r.split("[")[1].split("]")[0].split()] for r in rows])
+
+            gap = float(np.abs(cents(lines) - cents(ref)).max())
+            check(gap <= 2, f"colorkmeans k=3: centroid channels differ by {gap}")
+            same = f"{sum(a == b for a, b in zip(lines, ref))}/{k} rows equal to the CPU run's, largest centroid gap {gap:g}"
+        print(f"colorkmeans -d ({k} PNG cells {c}x{c}) -c {clusters} --device cuda: {same}; "
+              f"{t:.2f} s with decode and CSV {stamp}")
+
+
+def serving_phase(dev, stamp: str, flow_bgr: np.ndarray, tmp: str) -> None:
+    """Phase 5i: FlowCellNet serving. detect_windows over each rendered flow
+    frame at stride 25 (at 720p 1,350 windows in one batched forward per
+    frame), timed as windows/s; on three frames the window probabilities
+    within 1e-5 of the CPU model's and the boxes equal (confidence 0.9 and
+    0.5); then the classify, detect and realtime CLIs with --device cuda."""
+    import cv2
+    import torch
+
+    from opticalflowclustering_tpu_torch.cli import classify, detect, realtime
+    from opticalflowclustering_tpu_torch.models import flow_cnn
+
+    model = flow_cnn.load_params(device=dev)
+    ref = flow_cnn.load_params(device="cpu")
+    frames = torch.from_numpy(flow_bgr).to(dev)
+    n = frames.shape[0]
+    ys, xs, _ = flow_cnn._window_probs(model, frames[0])  # warm-up
+    windows = len(ys) * len(xs)
+    t = timed_s(dev, lambda: [flow_cnn._window_probs(model, f) for f in frames])
+    t_det = timed_s(dev, lambda: [flow_cnn.detect_windows(model, f) for f in flow_bgr])
+    worst, boxes = 0.0, 0
+    for i in sorted({0, n // 2, n - 1}):
+        got = flow_cnn._window_probs(model, frames[i])[2].cpu()
+        want = flow_cnn._window_probs(ref, flow_bgr[i])[2]
+        worst = max(worst, float((got - want).abs().max()))
+        for conf in (0.9, 0.5):
+            a = flow_cnn.detect_windows(model, flow_bgr[i], confidence=conf)
+            b = flow_cnn.detect_windows(ref, flow_bgr[i], confidence=conf)
+            check([x[2] for x in a] == [x[2] for x in b], f"detect frame {i} conf {conf}: boxes differ")
+            boxes += len(a)
+    check(worst <= 1e-5, f"FlowCellNet window probabilities card vs CPU: max abs diff {worst}")
+    print(f"detect_windows {n} frames of {flow_bgr.shape[2]}x{flow_bgr.shape[1]}, {windows} windows each: "
+          f"card vs CPU on 3 frames: probabilities max abs diff {worst:.3g} (tolerance 1e-5), boxes equal "
+          f"({boxes} boxes at confidence 0.9 and 0.5)")
+    print(f"time FlowCellNet windows {n} x {windows}: {n * windows / t:.0f} windows/s ({t / n * 1e3:.2f} ms "
+          f"per frame); detect_windows with the host NMS {n / t_det:.1f} frames/s {stamp}")
+
+    cell, frame_png, out_png = (os.path.join(tmp, x) for x in ("cell.png", "frame.png", "annotated.png"))
+    cv2.imwrite(cell, flow_bgr[0, :50, :50])
+    cv2.imwrite(frame_png, flow_bgr[0])
+    got, _ = run_cli(classify.main, ["-i", cell, "--device", "cuda"])
+    want, _ = run_cli(classify.main, ["-i", cell, "--device", "cpu"])
+    check(got[0].startswith("[INFO] classification took ") and [g.split(", probability")[0] for g in got[1:]]
+          == [w.split(", probability")[0] for w in want[1:]], f"classify printed {got}")
+    got, _ = run_cli(detect.main, ["-i", frame_png, "-c", "0.5", "-o", out_png, "--device", "cuda"])
+    want, _ = run_cli(detect.main, ["-i", frame_png, "-c", "0.5", "--device", "cpu"])
+
+    def parsed(lines):
+        return [(x.rsplit(": ", 1)[0], float(x.rsplit(": ", 1)[1].rstrip("%"))) for x in lines]
+
+    check(len(got) == len(want) and all(a[0] == b[0] and abs(a[1] - b[1]) <= 0.01
+                                        for a, b in zip(parsed(got), parsed(want))) and os.path.isfile(out_png),
+          f"detect printed {got}, the CPU {want}")
+    print(f"classify --device cuda: {' | '.join(run_cli(classify.main, ['-i', cell, '--device', 'cuda'])[0])} "
+          f"{stamp}")
+    t = timed_s(dev, lambda: run_cli(detect.main, ["-i", frame_png, "-c", "0.5", "--device", "cuda"]))
+    print(f"detect -c 0.5 --device cuda: {len(got)} detections, labels equal to the CPU run's and confidences "
+          f"within 0.01 %; annotated image written; {t * 1e3:.1f} ms with the model load and PNG decode {stamp}")
+    demo = "demo_out/601_3.avi"
+    lines, scored = run_cli(realtime.main, ["-s", demo, "--max-frames", str(REALTIME_FRAMES),
+                                                   "-o", os.path.join(tmp, "rt.avi"), "--device", "cuda"])
+    check(len(lines) == 2 and lines[1].startswith("[INFO] approx. FPS: ") and scored == REALTIME_FRAMES,
+          f"realtime scored {scored} frames, printed {lines}")
+    print(f"realtime -s {demo} --max-frames {REALTIME_FRAMES} --device cuda: {' | '.join(lines)} {stamp}")
+
+
+def smallcnn_phase(dev, stamp: str, frame: np.ndarray) -> None:
+    """Phase 5j: ClassifierNet (SmallCNN, 1000 classes) forward on a 224×224
+    blob of a frame, on the card and on the CPU from the same seeded
+    parameters: logits within 1e-5 of their largest magnitude (raw pixels
+    minus the mean make logits in the hundreds), top-5 equal; timed on the
+    card."""
+    import torch
+
+    from opticalflowclustering_tpu_torch.models import cnn
+
+    blob = cnn.blob_from_image(torch.from_numpy(frame).to(dev), mean=(104.0, 117.0, 123.0))
+    ref_blob = cnn.blob_from_image(torch.from_numpy(frame), mean=(104.0, 117.0, 123.0))
+    net, ref = cnn.ClassifierNet(seed=0, device=dev), cnn.ClassifierNet(seed=0, device="cpu")
+    net.set_input(blob)
+    ref.set_input(ref_blob)
+    got, want = net.forward(), ref.forward()
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    blob_err = float((blob.cpu() - ref_blob).abs().max())
+    check(got.shape == (1, 1000) and err <= 1e-5, f"SmallCNN logits card vs CPU: {got.shape}, rel {err}")
+    check([i for i, _ in cnn.top_k(got)] == [i for i, _ in cnn.top_k(want)], "SmallCNN top-5 differs")
+    ms = 1e3 * float(np.median([timed_s(dev, net.forward) for _ in range(5)]))
+    print(f"SmallCNN 224x224 blob, 1000 classes (largest logit {float(np.abs(want).max()):.4g}): card vs CPU "
+          f"logits max diff {err:.3g} of it (tolerance 1e-5), "
+          f"blob diff {blob_err:.3g}, top-5 equal; forward {ms:.2f} ms {stamp}")
+
+
+def trainbounce_phase(dev, stamp: str, series: np.ndarray, tmp: str) -> None:
+    """Phase 5k: the trainbounce CLI, 300 steps on window-9 hue windows cut
+    from the clip's hue series (a window of it as the bounce CSV, the rest
+    as two no-bounce CSVs), on the card and on the CPU from the same seeded
+    initialisation: final losses within rel 1e-2 (card and CPU reductions
+    differ, and 300 AdamW steps towards a loss near 0 may grow a rounding),
+    the same dataset line, the saved npz keys equal. The card's run is timed
+    twice: the first pays what the process's first `torch.optim` step
+    imports (torch._dynamo), the second is the CLI's steady cost."""
+    from opticalflowclustering_tpu_torch.cli import trainbounce
+
+    n = len(series)
+    parts = {"bounce": series[n // 3 : n // 3 + 15], "nobounce1": series[: n // 3],
+             "nobounce2": series[n // 3 + 15 :]}
+    files = {}
+    for name, values in parts.items():
+        files[name] = os.path.join(tmp, f"{name}.csv")
+        with open(files[name], "w") as f:
+            f.writelines(f"{i}.png,{float(v)!r}\n" for i, v in enumerate(values))
+    dynamo_first = "torch._dynamo" not in sys.modules
+    out = {}
+    for run, where in (("cold", "cuda"), ("cuda", "cuda"), ("cpu", "cpu")):
+        argv = ["--bounce", files["bounce"], "--nobounce", files["nobounce1"], files["nobounce2"],
+                "--steps", "300", "--out", os.path.join(tmp, f"bounce_{where}.npz"), "--device", where]
+        t0 = time.perf_counter()
+        lines, (_, loss) = run_cli(trainbounce.main, argv)
+        sync(dev)
+        out[run] = (lines, time.perf_counter() - t0, loss)
+    (lc, tc, loss_c), (lr, _, loss_r), t_cold = out["cuda"], out["cpu"], out["cold"][1]
+    with np.load(os.path.join(tmp, "bounce_cuda.npz")) as a, np.load(os.path.join(tmp, "bounce_cpu.npz")) as b:
+        keys_equal = sorted(a.files) == sorted(b.files) and len(a.files) == 6
+        worst = max(float(np.abs(a[k] - b[k]).max()) for k in a.files)
+    rel = abs(loss_c - loss_r) / abs(loss_r)
+    check(lc[0] == lr[0] and keys_equal, f"trainbounce: {lc} vs {lr}")
+    check(rel <= 1e-2, f"trainbounce final loss card {loss_c} vs CPU {loss_r}")
+    print(f"trainbounce --steps 300 --device cuda: {' | '.join(lc[:2])}; final loss card {loss_c!r}, CPU "
+          f"{loss_r!r} (rel diff {rel:.3g}, tolerance 1e-2); npz keys equal, params max abs diff {worst:.3g}; "
+          f"{tc:.2f} s, {t_cold:.2f} s the first time in this process (torch._dynamo "
+          f"{'first imported then' if dynamo_first else 'already imported'}) {stamp}")
+
+
+def fused_train_phase(dev, stamp: str, videos: np.ndarray) -> dict:
+    """Phase 5l: make_fused_train_step with FarnebackParams(warp_mode='fast')
+    and GridParams(4, 6) over videos [B, N, H, W, 3] u8, `steps` steps on a
+    2×2 mesh of the card and on a 1×1 mesh, each from the same seeded
+    classifier: losses and parameters within rel 1e-5 of each other, the
+    warp_m / box_solve launches the design count (levels × iterations per
+    block flow × blocks × steps); each step timed. Returns the launches."""
+    import torch
+
+    from opticalflowclustering_tpu_torch.features.grid import GridParams
+    from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams, pyramid_plan
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.models.bounce_classifier import adamw, init_classifier
+    from opticalflowclustering_tpu_torch.parallel.mesh import make_mesh
+    from opticalflowclustering_tpu_torch.parallel.train import make_fused_train_step
+
+    b, n, h, w = videos.shape[:4]
+    steps = 3
+    grid, flow = GridParams(4, 6), FarnebackParams(warp_mode="fast")
+    labels = (np.arange(b * n).reshape(b, n) % 4 == 0).astype(np.float32)
+    per_flow = len(pyramid_plan(h, w, flow)) * flow.iterations
+    runs = {}
+    for name, shape in (("2x2", {"dp": 2, "sp": 2}), ("1x1", {"dp": 1, "sp": 1})):
+        mesh = make_mesh(shape, [dev] * (shape["dp"] * shape["sp"]))
+        warm = init_classifier(torch.Generator().manual_seed(1), grid.rows * grid.cols, device=dev)
+        make_fused_train_step(mesh, warm, adamw(warm.parameters(), 1e-3), grid, flow)(videos, labels)
+        model = init_classifier(torch.Generator().manual_seed(0), grid.rows * grid.cols, device=dev)
+        step = make_fused_train_step(mesh, model, adamw(model.parameters(), 1e-3), grid, flow)
+        kw.reset_launches()
+        losses, times = [], []
+        for _ in range(steps):
+            sync(dev)
+            t0 = time.perf_counter()
+            losses.append(float(step(videos, labels)))
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+        blocks = shape["dp"] * shape["sp"]
+        launches = dict(kw.LAUNCHES)
+        want = per_flow * blocks * steps
+        check(launches == {"warp_m": want, "box_solve": want},
+              f"fused train {name}: expected {want} launches of each kernel, got {launches}")
+        runs[name] = (model, losses, times, launches, want)
+    (m22, l22, t22, n22, w22), (m11, l11, t11, n11, w11) = runs["2x2"], runs["1x1"]
+    check(all(np.isfinite(l22)), f"fused train losses {l22}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l22, l11))
+    param_rel = max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(m22.state_dict().values(), m11.state_dict().values()))
+    check(loss_rel <= 1e-5 and param_rel <= 1e-5,
+          f"fused train 2x2 vs 1x1: loss rel {loss_rel}, params rel {param_rel}")
+    print(f"fused train step {list(videos.shape)} grid 4x6 warp_mode=fast, {steps} steps: losses "
+          f"{', '.join(f'{v:.6f}' for v in l22)}; 2x2 vs 1x1 loss rel diff {loss_rel:.3g}, params rel diff "
+          f"{param_rel:.3g} (tolerance 1e-5); launches 2x2 {n22} (design {per_flow} x 4 blocks x {steps} steps "
+          f"= {w22}), 1x1 {n11} (design {w11})")
+    for name, ts in (("2x2", t22), ("1x1", t11)):
+        print(f"time fused train step {name} mesh of {dev}: {float(np.median(ts)) * 1e3:.1f} ms/step (median of "
+              f"{steps}, runs {', '.join(f'{v * 1e3:.1f}' for v in ts)} ms) {stamp}")
+    return {"fused_train_2x2": n22, "fused_train_1x1": n11}
+
+
+def model_phases(dev, stamp: str, flow_bgr: np.ndarray, series: np.ndarray, videos: np.ndarray) -> dict:
+    """Phases 5f-5l, the clustering and model paths, each run with the
+    kernel launch counts set to 0 just before it and read just after (only
+    the fused train step launches kernels). Returns the launches by path."""
+    import tempfile
+
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+
+    launches = {}
+
+    def counted(name, fn):
+        kw.reset_launches()
+        fn()
+        sync(dev)
+        launches[name] = dict(kw.LAUNCHES)
+
+    check(have_cv2(), "the model CLIs read and write images with cv2, which is not importable")
+    with tempfile.TemporaryDirectory(prefix="ofc-smoke-") as tmp:
+        counted("kmeans", lambda: kmeans_phase(dev, stamp, flow_bgr))
+        counted("quantize", lambda: quantize_phase(dev, stamp, videos[0, 0]))
+        counted("colorkmeans", lambda: colorkmeans_phase(dev, stamp, flow_bgr, tmp))
+        counted("serving", lambda: serving_phase(dev, stamp, flow_bgr, tmp))
+        counted("smallcnn", lambda: smallcnn_phase(dev, stamp, videos[0, 0]))
+        counted("trainbounce", lambda: trainbounce_phase(dev, stamp, series, tmp))
+    launches.update(fused_train_phase(dev, stamp, videos))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -650,6 +1027,11 @@ def main() -> int:
     path_launches.update(queue_phase(dev, stamp, clips, fast))
     path_launches.update(temporal_phase(dev, np.stack([frames[:16], frames[16:32]]), fast))
     findcosine_phase(series.cpu().numpy(), 20, 5)
+
+    # Phases 5f-5l: the clustering and model paths at 1280x720, each run
+    # with the launch counts set to 0 just before and read just after.
+    path_launches.update(model_phases(
+        dev, stamp, outs["fast"]["flow_bgr"], series.cpu().numpy(), np.stack([frames[:16], frames[16:32]])))
 
     # Phase 6: times on the card.
     def pipeline_fps(mode):

@@ -10,24 +10,32 @@ is plain PyTorch on the device the caller names.
 
 Layout (mirrors the JAX package):
   runtime.py  device selection and the float32 policy
-  ops/        cv2-exact colorspace, filters, resize, polar
+  ops/        cv2-exact colorspace, filters, resize, polar; LAB
   flow/       Farneback dense optical flow and the HSV flow render
   kernels/    the CUDA kernels (warp+M, box-solve, the probes), their build
               and their plain versions
   features/   grid pooling and the per-cell dominant colour
-  cluster/    the sliding-window signature matcher
+  cluster/    the sliding-window signature matcher; k-means (Lloyd, ++,
+              MiniBatchKMeans, batched)
+  models/     FlowCellNet (with its committed weights), the cv2.dnn slot's
+              SmallCNN, the bounce classifier; flax's 'SAME' convolution
   pipeline/   the bounce-feature pipeline (chunk_step, process_frames,
               process_video_stream) and the multi-video queue
-  parallel/   device meshes, the dp×sp split of the pipeline, and the
-              multi-process layer on torch.distributed
-  io/         video decode and encode on the host, the prefetch thread
+  parallel/   device meshes, the dp×sp split of the pipeline, the fused
+              dp×sp train step, and the multi-process layer on
+              torch.distributed
+  extras/     colour quantization, non-maximum suppression
+  io/         video decode and encode on the host, the prefetch thread,
+              the real-time VideoStream, image-tree readers
   compat/     byte-compatible CSV writers
-  cli/        kmeangrids, computeopticalflow, findcosine, processqueue
+  cli/        kmeangrids, computeopticalflow, findcosine, processqueue,
+              colorkmeans, classify, detect, realtime, trainbounce
   scripts/    the probe scripts (gather_cost_probe, profile_r4) and the
               bench clips
   utils/      timing and tracing (StageTimer, ThroughputMeter, trace_to,
               CUDA-event timers) and logging
-  convert.py  carries configs and constant tables across from the JAX side
+  convert.py  carries configs, constant tables and flax parameters across
+              from the JAX side
 
 This package imports torch and numpy only; it never imports jax.
 """

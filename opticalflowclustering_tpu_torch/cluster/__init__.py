@@ -1,1 +1,1 @@
-"""Signature matching (port of opticalflowclustering_tpu.cluster)."""
+"""Signature matching and k-means (port of opticalflowclustering_tpu.cluster)."""

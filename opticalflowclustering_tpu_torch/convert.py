@@ -6,13 +6,21 @@ dataclasses field by field onto the port's (it takes the objects and
 imports nothing from JAX); `constant_tables` returns the port's copies of
 the numpy tables the JAX modules build, so a test can hold each one
 `array_equal` to the original.
+
+The models carry learned parameters: `from_flax_params` turns the JAX
+package's flax parameters of FlowCellNet, SmallCNN or BounceClassifier into
+the port's state dict, and `to_flax_params` turns a port model back into
+the flat keystr-keyed dict the JAX package saves.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
+from collections.abc import Mapping
 
 import numpy as np
+import torch
 
 from opticalflowclustering_tpu_torch.features.grid import GridParams
 from opticalflowclustering_tpu_torch.flow.farneback import (
@@ -87,3 +95,75 @@ def constant_tables(
         tables[f"border_taper.level{k}"] = _border_taper(h_k, w_k)
         prev = (h_k, w_k)
     return tables
+
+
+# ---------------------------------------------------------------------------
+# learned parameters: flax pytrees ↔ the port's state dicts
+# ---------------------------------------------------------------------------
+
+# Layers of each model, in flax's auto-naming (Conv_i / Dense_i); the port's
+# models hold them as `convs.i` and `dense.i`.
+_FLAX_LAYERS = {
+    "FlowCellNet": {"Conv": 6, "Dense": 2},
+    "SmallCNN": {"Conv": 3, "Dense": 2},
+    "BounceClassifier": {"Conv": 0, "Dense": 3},
+}
+_PORT_PREFIX = {"Conv": "convs", "Dense": "dense"}
+_KEYSTR = re.compile(r"\['([^']*)'\]")
+
+
+def _flax_leaves(params) -> dict[tuple[str, ...], np.ndarray]:
+    """(path, array) of every leaf of a flax params pytree (nested mappings)
+    or of a flat mapping keyed by `jax.tree_util.keystr` (a loaded npz)."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, path + (tuple(_KEYSTR.findall(k)) or (k,)))
+        else:
+            out[path] = np.asarray(node)
+
+    walk(params, ())
+    return out
+
+
+def from_flax_params(model_name: str, flat_npz_or_pytree) -> dict[str, torch.Tensor]:
+    """The port's state dict for `model_name` ("FlowCellNet", "SmallCNN",
+    "BounceClassifier") from the JAX package's parameters of that model: a
+    flax pytree, or a flat mapping keyed like `['params']['Conv_0']['kernel']`
+    (the npz the JAX package saves). Conv kernels HWIO → OIHW, Dense kernels
+    [in, out] → Linear weights [out, in], biases as they are."""
+    if model_name not in _FLAX_LAYERS:
+        raise ValueError(f"no flax layout for model {model_name!r}")
+    want = {(kind, i) for kind, n in _FLAX_LAYERS[model_name].items() for i in range(n)}
+    state = {}
+    for path, arr in _flax_leaves(flat_npz_or_pytree).items():
+        path = path[1:] if path[:1] == ("params",) else path
+        layer, leaf = path
+        kind, _, idx = layer.partition("_")
+        if (kind, int(idx or -1)) not in want or leaf not in ("kernel", "bias"):
+            raise ValueError(f"{model_name} has no flax parameter {path}")
+        if leaf == "kernel":
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        state[f"{_PORT_PREFIX[kind]}.{idx}.{'weight' if leaf == 'kernel' else 'bias'}"] = (
+            torch.from_numpy(np.array(arr, dtype=np.float32, order="C")))
+    if len(state) != 2 * len(want):
+        raise ValueError(f"{model_name}: {len(state)} parameters, {2 * len(want)} expected")
+    return state
+
+
+def to_flax_params(model) -> dict[str, np.ndarray]:
+    """The inverse of from_flax_params: the port's model → a flat dict keyed
+    like `jax.tree_util.keystr` of the flax params (`['params']['Dense_0']
+    ['kernel']`), in flax's sorted key order, as the JAX package saves it."""
+    inv = {v: k for k, v in _PORT_PREFIX.items()}
+    out = {}
+    for name, t in model.state_dict().items():
+        prefix, idx, leaf = name.split(".")
+        arr = t.detach().cpu().numpy()
+        if leaf == "weight":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        key = f"['params']['{inv[prefix]}_{idx}']['{'kernel' if leaf == 'weight' else 'bias'}']"
+        out[key] = np.ascontiguousarray(arr)
+    return dict(sorted(out.items()))

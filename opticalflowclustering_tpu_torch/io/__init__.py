@@ -1,1 +1,2 @@
-"""Host media boundary: video decode on the host."""
+"""Host media boundary: video decode and encode, the real-time stream, and
+image-tree readers, on the host."""

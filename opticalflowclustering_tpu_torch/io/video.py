@@ -7,14 +7,15 @@ previous chunk. Encode mirrors `cv2.VideoWriter` with the reference's MJPG
 fourcc (`computeOpticalFlow.py:27-33`). cv2 is imported inside the functions
 that decode or encode, so importing this module loads neither cv2 nor any
 part of the JAX package. The JAX package's `native=True` branch (its C++
-MJPEG decoder, whose rounding differs from cv2's) and its `VideoStream` (the
-real-time demo's source) have no counterpart here yet.
+MJPEG decoder, whose rounding differs from cv2's) has no counterpart here.
+`VideoStream` is the real-time demo's paced threaded source.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from collections.abc import Iterable, Iterator
 
 import numpy as np
@@ -176,6 +177,65 @@ def stream_video_chunks(
     inside its hot loop, `KmeanGrids.py:180-185`). A decode error is raised
     on the consumer's side."""
     return prefetch_chunks(_cv2_frames(path, max_frames), chunk, overlap, prefetch)
+
+
+class VideoStream:
+    """Threaded frame source, the imutils.video.VideoStream analogue the
+    real-time demo builds on (`real-time-object-detection-with-deep-learning
+    -and-opencv/real_time_object_detection.py:29`): a daemon thread reads
+    frames as fast as the source produces them and `read()` returns the
+    latest one. `src` is a camera index or a video path; files are paced at
+    their native fps (`paced=None`), so they behave like a live source."""
+
+    def __init__(self, src: int | str = 0, paced: bool | None = None):
+        import cv2
+
+        self._cap = cv2.VideoCapture(src)
+        if not self._cap.isOpened():
+            raise FileNotFoundError(f"cannot open stream source: {src}")
+        self._paced = paced if paced is not None else isinstance(src, str)
+        self._fps = self._cap.get(cv2.CAP_PROP_FPS) or 30.0
+        self._frame: np.ndarray | None = None
+        self._stopped = threading.Event()
+        self._ready = threading.Event()
+        self._thread = threading.Thread(target=self._loop, name="ofc-videostream", daemon=True)
+
+    def start(self) -> "VideoStream":
+        self._thread.start()
+        return self
+
+    def _loop(self):
+        interval = 1.0 / max(self._fps, 1e-3)
+        try:
+            while not self._stopped.is_set():
+                t0 = time.time()
+                ret, frame = self._cap.read()
+                if not ret:
+                    break
+                self._frame = frame
+                self._ready.set()
+                if self._paced:
+                    time.sleep(max(0.0, interval - (time.time() - t0)))
+        finally:
+            self._stopped.set()
+            self._cap.release()
+
+    def read(self, timeout: float = 5.0) -> np.ndarray | None:
+        """Latest frame, or None before the first frame arrives within
+        `timeout` on a source that yields none."""
+        if self._frame is None and not self._stopped.is_set():
+            self._ready.wait(timeout)
+        return self._frame
+
+    def running(self) -> bool:
+        return not self._stopped.is_set()
+
+    def stop(self) -> None:
+        """Stop the reader thread and wait (up to 5 s) for it to release the
+        source."""
+        self._stopped.set()
+        if self._thread.is_alive():
+            self._thread.join(5.0)
 
 
 def write_video_mjpg(path: str, frames: np.ndarray, fps: float) -> None:

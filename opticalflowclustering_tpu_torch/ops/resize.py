@@ -99,3 +99,8 @@ def resize_linear(img: torch.Tensor, dst_hw: tuple[int, int]) -> torch.Tensor:
             wx = torch.from_numpy(_linear_weight_matrix(dst_w, src_w)).to(x.device)
             x = torch.matmul(x, wx.T)
     return x
+
+
+def resize_linear_hwc(img: torch.Tensor, dst_hw: tuple[int, int]) -> torch.Tensor:
+    """resize_linear for [..., H, W, C] channel-last data."""
+    return resize_linear(torch.movedim(img, -1, -3), dst_hw).movedim(-3, -1)

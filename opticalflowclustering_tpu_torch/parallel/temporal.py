@@ -52,12 +52,11 @@ def _split(size: int, parts: int, what: str) -> int:
     return size // parts
 
 
-def _sharded_blocks(videos, devs: np.ndarray, step):
-    """Run `step(gray_ext)` on every (dp, sp) block of videos [B, N, H, W, 3]
-    u8 on the block's device of devs [dp, sp]; gray_ext is the block's gray
-    frames [b_loc, n_loc + 1, H, W] with the next block's first frame (the
-    ring wraps) appended. Returns each output of `step` stitched back to
-    [B, N, ...] on the CPU."""
+def _block_grays(videos, devs: np.ndarray):
+    """The (dp, sp) blocks of videos [B, N, H, W, 3] u8 over devs [dp, sp]:
+    yields (i, j, gray_ext) with gray_ext the block's gray frames
+    [b_loc, n_loc + 1, H, W] on devs[i, j], the next block's first frame (the
+    ring wraps: the last block gets frame 0) appended as the one-frame halo."""
     for d in set(devs.flat):
         resolve_device(d)  # raises where CUDA is absent; no TF32
     v = torch.as_tensor(videos)
@@ -71,13 +70,19 @@ def _sharded_blocks(videos, devs: np.ndarray, step):
         ]
         for i in range(dp)
     ]
-    outs = [
-        [
-            step(torch.cat([gray[i][j], gray[i][(j + 1) % sp][:, :1].to(devs[i, j])], dim=1))
-            for j in range(sp)
-        ]
-        for i in range(dp)
-    ]
+    for i in range(dp):
+        for j in range(sp):
+            yield i, j, torch.cat([gray[i][j], gray[i][(j + 1) % sp][:, :1].to(devs[i, j])], dim=1)
+
+
+def _sharded_blocks(videos, devs: np.ndarray, step):
+    """Run `step(gray_ext)` on every (dp, sp) block of videos [B, N, H, W, 3]
+    u8 on the block's device of devs [dp, sp] (`_block_grays`). Returns each
+    output of `step` stitched back to [B, N, ...] on the CPU."""
+    dp, sp = devs.shape
+    outs = [[None] * sp for _ in range(dp)]
+    for i, j, gray_ext in _block_grays(videos, devs):
+        outs[i][j] = step(gray_ext)
     n_out = len(outs[0][0])
     return tuple(
         torch.cat([torch.cat([outs[i][j][t].cpu() for j in range(sp)], dim=1) for i in range(dp)])

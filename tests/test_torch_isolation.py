@@ -116,8 +116,9 @@ def _port_sources():
 
 
 def _foreign_imports(path):
-    """(line, module) of every import in `path` of jax, jaxlib or the JAX
-    package (opticalflowclustering_tpu but not ..._torch), at any depth."""
+    """(line, module) of every import in `path` of jax, jaxlib, flax, optax,
+    pandas or the JAX package (opticalflowclustering_tpu but not ..._torch),
+    at any depth."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
     found = []
@@ -130,21 +131,26 @@ def _foreign_imports(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "opticalflowclustering_tpu"):
+            if top in ("jax", "jaxlib", "flax", "optax", "pandas", "opticalflowclustering_tpu"):
                 found.append((node.lineno, name))
     return found
 
 
 def test_port_sources_import_nothing_of_jax(tmp_path):
     """Read, not run: every .py of the port and chip_smoke.py, walked with
-    ast, imports neither jax nor jaxlib nor anything of the JAX package, also
-    inside functions, where an import-and-run probe does not reach."""
+    ast, imports neither jax, jaxlib, flax, optax, pandas nor anything of the
+    JAX package, also inside functions, where an import-and-run probe does
+    not reach."""
     sources = list(_port_sources())
     assert len(sources) > 30
     port = os.path.join(REPO, "opticalflowclustering_tpu_torch")
     for rel in ("io/video.py", "pipeline/queue.py", "parallel/mesh.py", "parallel/temporal.py",
                 "parallel/multihost.py", "cli/computeopticalflow.py", "cli/findcosine.py",
-                "cli/processqueue.py", "utils/logging.py"):
+                "cli/processqueue.py", "utils/logging.py", "cluster/kmeans.py", "ops/lab.py",
+                "extras/quantize.py", "extras/nms.py", "io/images.py", "cli/colorkmeans.py",
+                "models/flow_cnn.py", "models/cnn.py", "models/bounce_classifier.py", "models/layers.py",
+                "cli/classify.py", "cli/detect.py", "cli/realtime.py", "cli/trainbounce.py",
+                "parallel/train.py", "convert.py"):
         assert os.path.join(port, rel) in sources, rel
     bad = {os.path.relpath(p, REPO): f for p in sources if (f := _foreign_imports(p))}
     assert bad == {}
@@ -156,9 +162,12 @@ def test_port_sources_import_nothing_of_jax(tmp_path):
         "def f():\n"
         "    from opticalflowclustering_tpu.io.video import read_video_bgr\n"
         "    import jax.numpy, jaxlib\n"
+        "    from flax import linen\n"
+        "    import optax, pandas as pd\n"
     )
     assert _foreign_imports(str(probe)) == [
-        (3, "opticalflowclustering_tpu.io.video"), (4, "jax.numpy"), (4, "jaxlib")]
+        (3, "opticalflowclustering_tpu.io.video"), (4, "jax.numpy"), (4, "jaxlib"), (5, "flax"),
+        (6, "optax"), (6, "pandas")]
 
 
 def test_read_video_bgr_equals_the_jax_packages():
@@ -458,4 +467,94 @@ def test_chip_smoke_queue_and_temporal_phases_rehearsal_without_cv2(monkeypatch,
     for tag in ("dp queue on a 2x2 mesh of cpu", "'batches': 1", "decode from memory",
                 "time process_video_queue 3 videos", "time process_video_queue_dp 3 videos",
                 "temporal [2, 2, 288, 512, 3] on a 2x2 mesh"):
+        assert tag in out, tag
+
+
+_MODEL_PATH_PROBE = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from opticalflowclustering_tpu_torch import convert
+from opticalflowclustering_tpu_torch.cli import classify, colorkmeans, detect, realtime, trainbounce
+from opticalflowclustering_tpu_torch.cluster import kmeans
+from opticalflowclustering_tpu_torch.extras import nms, quantize
+from opticalflowclustering_tpu_torch.io import images
+from opticalflowclustering_tpu_torch.models import bounce_classifier, cnn, flow_cnn
+from opticalflowclustering_tpu_torch.parallel import mesh, train
+rng = np.random.default_rng(0)
+img = torch.from_numpy(rng.integers(0, 256, (20, 30, 3), dtype=np.uint8))
+assert quantize.quantize_colors(img, 3).shape == (20, 30, 3)
+model = flow_cnn.load_params(device="cpu")
+assert flow_cnn.classify_cells(model, rng.integers(0, 256, (2, 50, 50, 3), dtype=np.uint8)).shape == (2, 2)
+assert len(convert.to_flax_params(model)) == 16
+clf = bounce_classifier.init_classifier(None, 24, device="cpu")
+step = train.make_fused_train_step(mesh.make_mesh({"dp": 1, "sp": 2}, ["cpu"] * 2), clf,
+                                   bounce_classifier.adamw(clf.parameters(), 1e-3),
+                                   flow_params=train.FarnebackParams(levels=1))
+loss = step(rng.integers(0, 256, (1, 2, 32, 48, 3), dtype=np.uint8), np.zeros((1, 2), np.float32))
+assert np.isfinite(float(loss))
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cv2", "pandas",
+                                                     "opticalflowclustering_tpu")]
+print("LOADED", bad)
+"""
+
+
+def test_model_path_modules_import_no_jax_cv2_or_pandas():
+    """In a fresh interpreter: import the clustering and model modules and
+    their five CLIs, quantize an image, classify with the committed weights
+    and take one fused train step on a 1×2 CPU mesh; no module of jax,
+    flax, optax, cv2, pandas or the JAX package is loaded."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run(
+        [sys.executable, "-c", _MODEL_PATH_PROBE],
+        cwd=REPO,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=300,
+    )
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "LOADED []" in r.stdout, r.stdout
+
+
+def test_chip_smoke_model_phases_rehearsal(monkeypatch, capsys):
+    """chip_smoke.model_phases on the CPU at small sizes: "cuda" resolves to
+    the CPU in every module that resolves a device, the kernel entries are
+    counted plain versions, one timing repeat, 3 realtime frames. Flow
+    frames rendered from a 4-frame 288×512 clip feed k-means (3 × 350
+    cells of 20×20), colorkmeans, serving and quantize; a 48-value hue
+    series feeds trainbounce; [2, 4, 96, 128, 3] videos feed the fused
+    train step, whose launches are the design count on each mesh and
+    which are the only kernel launches of the phases."""
+    from opticalflowclustering_tpu_torch.flow.farneback import pyramid_plan
+    from opticalflowclustering_tpu_torch.models import bounce_classifier, cnn, flow_cnn
+    from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
+
+    chip_smoke, bounce, kw = _rehearse_on_cpu(monkeypatch)
+    for mod in (flow_cnn, cnn, bounce_classifier):
+        monkeypatch.setattr(mod, "resolve_device", bounce.resolve_device)
+    monkeypatch.setattr(chip_smoke, "REALTIME_FRAMES", 3)
+    dev = torch.device("cpu")
+    flow_bgr = bounce.process_frames(synth_frames(4, 288, 512), bounce.PipelineConfig(), dev)["flow_bgr"]
+    series = np.random.default_rng(0).integers(0, 180, 48).astype(np.float32)
+    videos = np.stack([synth_frames(4, 96, 128, seed=s) for s in (1, 2)])
+    launches = chip_smoke.model_phases(dev, "[cpu rehearsal]", flow_bgr, series, videos)
+    per_flow = len(pyramid_plan(96, 128, bounce.FarnebackParams())) * 3
+    zero = {"warp_m": 0, "box_solve": 0}
+    assert launches == {
+        "kmeans": zero, "quantize": zero, "colorkmeans": zero, "serving": zero, "smallcnn": zero,
+        "trainbounce": zero,
+        "fused_train_2x2": {"warp_m": 12 * per_flow, "box_solve": 12 * per_flow},
+        "fused_train_1x1": {"warp_m": 3 * per_flow, "box_solve": 3 * per_flow},
+    }
+    out = capsys.readouterr().out
+    for tag in ("kmeans_batched k=3 n_iter=30 over 1050 cells x 400 px", "time kmeans_batched 1050 cells",
+                "quantize_colors 128x96 k=8 method=lloyd", "method=minibatch",
+                "colorkmeans -d (1050 PNG cells 20x20) -c 1 --device cuda: CSV byte-equal",
+                "-c 3 --device cuda: ", "detect_windows 3 frames of 512x288, 190 windows each",
+                "time FlowCellNet windows", "classify --device cuda: [INFO] classification took",
+                "detect -c 0.5 --device cuda", "realtime -s demo_out/601_3.avi --max-frames 3",
+                "SmallCNN 224x224 blob, 1000 classes", "trainbounce --steps 300 --device cuda: dataset: 24 windows (7 positive)",
+                "fused train step [2, 4, 96, 128, 3]", "time fused train step 2x2", "time fused train step 1x1"):
         assert tag in out, tag
