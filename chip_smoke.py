@@ -11,7 +11,14 @@ signature, then drives the video-file paths at 1280x720 with their kernel
 launches counted: the stream's device loop through its prefetch thread
 (tables equal to process_frames'), the sequential and the dp×sp queue on a
 2×2 mesh of the card (artifacts equal), the temporal split (equal to the
-unsharded pipeline) and the findcosine CLI; then the clustering and model
+unsharded pipeline) and the findcosine CLI; then the native MJPEG decoder
+(built from the checkout's C++ source, or reported unavailable with the
+compiler's words) against cv2, its stream with its kernel launches counted
+(tables equal to process_frames' of the natively decoded frames), flow EPE
+against cv2.calcOpticalFlowFarneback in every warp mode, the drawgrids CLI
+(against itself on the CPU), the kmeangrids cell-tree path over drawgrids'
+16,800 cell PNGs (equal to grid_cluster_stage) and the vectordistance CLI;
+then the clustering and model
 paths at 1280x720, each against the same function on the CPU: kmeans_batched
 over the 16,800 cells of the rendered flow frames, quantize_colors, the
 colorkmeans CLI, FlowCellNet serving (detect_windows on every frame, the
@@ -60,6 +67,9 @@ BOX_WINSIZES = tuple(range(1, 18, 2))
 BOX_SHAPES = ((2, 72, 300), (3, 40, 100), (1, 5, 7), (1, 3, 40))
 QUEUE_CLIP = 17  # frames per queue clip: 16 pairs, one chunk each
 DEMO_FRAMES = None  # frames of demo_out/601_3.avi the cv2 stream check reads (None: all)
+# --max-frames of drawgrids' CPU run: 2 pairs of plain 720p flow on the host
+# take ~20 s, so the check reads the card's first 2 rows.
+DRAWGRIDS_CPU_FRAMES = 3
 REALTIME_FRAMES = 75  # --max-frames of the realtime CLI on demo_out/601_3.avi
 
 
@@ -454,6 +464,253 @@ def findcosine_phase(series: np.ndarray, start: int, length: int) -> None:
     print(f"findcosine --device cuda: {' | '.join(lines)} (window planted at {start})")
 
 
+def codec_headers() -> tuple[bool, str]:
+    """Whether this host's g++ finds jpeglib.h and png.h (what the native
+    decoder includes), and the compiler's words when it does not."""
+    import subprocess
+
+    for header in ("jpeglib.h", "png.h"):
+        try:
+            r = subprocess.run(["g++", "-E", "-x", "c++", "-"], input=f"#include <{header}>\n",
+                               capture_output=True, text=True, timeout=60)
+        except (OSError, subprocess.SubprocessError) as e:
+            return False, f"g++ -E: {e}"
+        if r.returncode != 0:
+            return False, r.stderr.strip()
+    return True, "g++ finds jpeglib.h and png.h"
+
+
+def native_decode_phase(dev, stamp: str, frames: np.ndarray, cfg, path: str) -> dict:
+    """Phase 5m: the native MJPEG decoder (io.fastio, built from the port's
+    native/fastio.cpp) on `frames` written as an MJPG AVI at `path`. Prints
+    which decoder ran and why; where the codec headers are there, a build or
+    decode that fails fails the phase, and where they are not, the phase says
+    the decoder is unavailable and runs nothing native. Then: native decode
+    frames/s beside cv2's (in turns); the native frames within 5 codes (mean
+    < 1) of cv2's; process_video_stream(native=True) in `cfg`'s mode with its
+    launches counted, its tables equal to process_frames' of the natively
+    decoded frames (integer tables bitwise); and pairs/s of the native and
+    the cv2 stream, in turns. Returns the native stream's launches."""
+    from opticalflowclustering_tpu_torch.io import fastio
+    from opticalflowclustering_tpu_torch.io import video as io_video
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.pipeline.bounce import process_frames, process_video_stream
+
+    n, h, w = frames.shape[:3]
+    headers, why = codec_headers()
+    ok = fastio.available()
+    print(f"native decoder: codec headers {'found' if headers else 'missing'} ({why}); "
+          f"fastio.available() = {ok}; build into {fastio.BUILD_DIR}"
+          + ("" if ok else f"; build error verbatim:\n{fastio.build_error()}"))
+    if not ok:
+        check(not headers, "the codec headers are there but the native decoder did not build")
+        print("native decoder unavailable on this host: decode and stream stay on cv2; no native number below")
+        return {}
+    check(fastio.probe_mjpeg_avi(path) == (n, h, w), f"probe {fastio.probe_mjpeg_avi(path)}")
+    native = fastio.decode_mjpeg_avi(path)
+    ref = io_video.read_video_bgr(path)
+    gap = np.abs(native.astype(np.int16) - ref.astype(np.int16))
+    check(native.shape == ref.shape == (n, h, w, 3), f"native decode {native.shape} vs cv2 {ref.shape}")
+    check(int(gap.max()) <= 5 and float(gap.mean()) < 1.0,
+          f"native decode vs cv2: largest gap {int(gap.max())}, mean {float(gap.mean())}")
+    check(np.array_equal(io_video.read_video_bgr(path, native=True), native), "read_video_bgr(native=True)")
+    decoders = {"native": lambda: fastio.decode_mjpeg_avi(path), "cv2": lambda: io_video.read_video_bgr(path)}
+    times = {k: [] for k in decoders}
+    for _ in range(REPEATS):
+        for name, fn in decoders.items():
+            times[name].append(timed_s(dev, fn))
+    fps = {k: n / float(np.median(v)) for k, v in times.items()}
+    print(f"decode {n} MJPG frames {w}x{h}: native {fps['native']:.1f} frames/s "
+          f"({fastio._threads()} threads), cv2 {fps['cv2']:.1f} frames/s (median of {REPEATS}, in turns); native "
+          f"vs cv2 largest gap {int(gap.max())} codes, mean {float(gap.mean()):.4f} (contract <= 5, < 1) {stamp}")
+
+    kw.reset_launches()
+    got = process_video_stream(path, cfg, None, dev, native=True)
+    sync(dev)
+    launches = dict(kw.LAUNCHES)
+    runs = kernel_runs(n - 1, cfg.chunk, h, w, cfg.flow)
+    check(launches == {"warp_m": runs, "box_solve": runs}, f"native stream: expected {runs} launches, got {launches}")
+    rel = check_tables(got, process_frames(native, dataclasses.replace(cfg, emit_flow_bgr=False), dev),
+                       "native stream vs process_frames of the native decode")
+    print(f"native stream {n}x{h}x{w} warp_mode={cfg.flow.warp_mode}: launches {launches} (design {runs}); "
+          f"tables equal to process_frames' of the natively decoded frames (integer tables bitwise, "
+          f"mean_magnitude rel diff {rel:.3g})")
+    streams = {"native stream": lambda: process_video_stream(path, cfg, None, dev, native=True),
+               "cv2 stream": lambda: process_video_stream(path, cfg, None, dev)}
+    times = {k: [] for k in streams}
+    for _ in range(REPEATS):
+        for name, fn in streams.items():
+            times[name].append(timed_s(dev, fn))
+    for name, ts in times.items():
+        print(f"time {name} {n}x{h}x{w} (decode included): {(n - 1) / float(np.median(ts)):.2f} pairs/s "
+              f"(median of {REPEATS}, in turns, runs {', '.join(f'{t:.3f}' for t in ts)} s) {stamp}")
+    return launches
+
+
+def epe_phase(dev, stamp: str, frames: np.ndarray) -> None:
+    """Phase 5n: mean EPE of farneback_flow on the card against
+    cv2.calcOpticalFlowFarneback(prev, next, None, 0.5, 3, 15, 3, 5, 1.2, 0)
+    in each warp mode, on 4 pairs of `frames` and 4 pairs of real footage
+    (demo_out/601_3.avi frames 30–34): below 1e-3 px for exact and fast,
+    0.01 px for fast16 (the JAX package's gates, tests/test_pallas_warp.py)."""
+    import cv2
+    import torch
+
+    from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams, farneback_flow
+    from opticalflowclustering_tpu_torch.io import video as io_video
+    from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
+
+    gates = {"exact": 1e-3, "fast": 1e-3, "fast16": 1e-2}
+    clips = {f"synthetic {frames.shape[2]}x{frames.shape[1]}": frames[:5],
+             "demo_out/601_3.avi 220x232": io_video.read_video_bgr("demo_out/601_3.avi", 35)[30:35]}
+    for name, clip in clips.items():
+        gray = bgr2gray(torch.from_numpy(clip))
+        want = np.stack([cv2.calcOpticalFlowFarneback(gray[i].numpy(), gray[i + 1].numpy(), None,
+                                                      0.5, 3, 15, 3, 5, 1.2, 0) for i in range(4)])
+        g = gray.to(dev)
+        parts = []
+        for mode, gate in gates.items():
+            got = farneback_flow(g[:-1], g[1:], FarnebackParams(warp_mode=mode)).cpu().numpy()
+            epe = np.sqrt(((got - want) ** 2).sum(-1)).mean(axis=(1, 2))
+            check(bool(np.isfinite(epe).all()) and float(epe.max()) < gate,
+                  f"EPE vs cv2 {name} {mode}: {epe.tolist()} (gate {gate})")
+            parts.append(f"{mode} {float(epe.mean()):.3g} (worst pair {float(epe.max()):.3g}, gate {gate:g})")
+        print(f"EPE vs cv2 {cv2.__version__} calcOpticalFlowFarneback, 4 pairs of {name} (max |flow| "
+              f"{float(np.abs(want).max()):.1f} px), mean px: {'; '.join(parts)} {stamp}")
+
+
+def drawgrids_phase(dev, stamp: str, clip: str, tmp: str) -> str:
+    """Phase 5o: the drawgrids CLI (--dump-cells, --device cuda) on the MJPG
+    clip, timed, and the same CLI on the CPU at --max-frames
+    DRAWGRIDS_CPU_FRAMES (a copy of the clip in a directory of its own): the
+    CPU's `_rgb_values.csv` rows equal the card's first rows byte for byte.
+    Returns the card's OutImgs tree."""
+    import shutil
+
+    from opticalflowclustering_tpu_torch.cli import drawgrids
+
+    name = os.path.basename(clip).split(".")[0]
+    runs = {}
+    for where, extra in (("cuda", []), ("cpu", ["--max-frames", str(DRAWGRIDS_CPU_FRAMES)])):
+        d = os.path.join(tmp, f"drawgrids_{where}")
+        os.makedirs(d)
+        path = shutil.copy(clip, d)
+        t0 = time.perf_counter()
+        with contextlib.chdir(d):
+            lines, _ = run_cli(drawgrids.main, ["--path", path, "--noyolo", "--nocontour", "--dump-cells",
+                                                "--device", where] + extra)
+        sync(dev)
+        with open(path + "_rgb_values.csv") as f:
+            runs[where] = (time.perf_counter() - t0, f.read().splitlines(), lines)
+    (t, card, lines), (_, cpu, _) = runs["cuda"], runs["cpu"]
+    tree = os.path.join(tmp, "drawgrids_cuda", "OutImgs", name)
+    n_cells = sum(len(files) for _, _, files in os.walk(tree))
+    check(len(cpu) == DRAWGRIDS_CPU_FRAMES and card[: len(cpu)] == cpu,
+          f"drawgrids rgb_values: CPU rows {cpu[1:2]} vs card {card[1:2]}")
+    print(f"drawgrids --dump-cells --device cuda on {clip}: {' | '.join(lines)}; {n_cells} cell PNGs; "
+          f"rgb_values rows equal to the CPU run's at --max-frames {DRAWGRIDS_CPU_FRAMES} ({len(cpu) - 1} rows); "
+          f"{t:.2f} s with "
+          f"decode, writes and the MJPG output {stamp}")
+    return tree
+
+
+def celltree_phase(dev, stamp: str, clip: str, tree: str, tmp: str) -> None:
+    """Phase 5p: the kmeangrids CLI with a Git-LFS pointer stub as --path
+    over drawgrids' cell tree of `clip` (--device cuda), timed as cells/s:
+    its hue table equals grid_cluster_stage's on the same rendered frames
+    (the own-rectangle lines are in the PNGs) bitwise, and it writes one -f
+    row per cell."""
+    from opticalflowclustering_tpu_torch.cli import kmeangrids
+    from opticalflowclustering_tpu_torch.features.grid import GridParams
+    from opticalflowclustering_tpu_torch.io import video as io_video
+    from opticalflowclustering_tpu_torch.pipeline.bounce import PipelineConfig, grid_cluster_stage, process_frames
+
+    d = os.path.join(tmp, "celltree")
+    os.makedirs(d)
+    stub = os.path.join(d, "clip.mp4")
+    with open(stub, "w") as f:
+        f.write("version https://git-lfs.github.com/spec/v1\noid sha256:0\nsize 0\n")
+    t0 = time.perf_counter()
+    with contextlib.chdir(d):
+        lines, _ = run_cli(kmeangrids.main, ["-d", tree, "-c", "1", "-f", "addnew.csv", "--noyolo", "--nocontour",
+                                             "--path", stub, "--device", "cuda"])
+    t = time.perf_counter() - t0
+    name = os.path.basename(tree)
+    got = np.loadtxt(os.path.join(d, "OutCSV", f"{name}.csv"), delimiter=",", skiprows=1, dtype=np.int64, ndmin=2)
+    flow_bgr = process_frames(io_video.read_video_bgr(clip), PipelineConfig(), dev)["flow_bgr"]
+    want = grid_cluster_stage(flow_bgr, GridParams(), True, dev)[1].cpu().numpy()
+    with open(os.path.join(d, "addnew.csv")) as f:
+        rows = sum(1 for _ in f)
+    check(lines[0].endswith("instead") and got.shape == want.shape and np.array_equal(got, want),
+          f"celltree: {lines}, table {got.shape} vs grid_cluster_stage {want.shape}")
+    check(rows == want.size, f"celltree: {rows} -f rows for {want.size} cells")
+    print(f"kmeangrids cell-tree path (LFS stub --path) --device cuda: {lines[-1]}; hue table bitwise equal to "
+          f"grid_cluster_stage's on the rendered frames; {want.size / t:.0f} cells/s ({t:.2f} s with PNG decode and "
+          f"CSV writes) {stamp}")
+
+
+def vectordistance_phase(series: np.ndarray, rgb_series: np.ndarray, tmp: str) -> None:
+    """Phase 5q: the vectordistance CLI (--device cuda) on two hue CSVs of
+    the run, of different lengths: the first two thirds of the clip's
+    dominant-hue series and its whole mean-BGR-hue series. The same lines as
+    the CPU run, the cosine and the Euclidean distance within 1e-6
+    relative."""
+    from opticalflowclustering_tpu_torch.cli import vectordistance
+
+    files = []
+    for name, values in (("hue.csv", series[: len(series) * 2 // 3]), ("rgb_hue.csv", rgb_series)):
+        files.append(os.path.join(tmp, name))
+        with open(files[-1], "w") as f:
+            f.writelines(f"{i + 2}.png,{float(v)!r}\n" for i, v in enumerate(values))
+    out = {where: run_cli(vectordistance.main, files + ["--device", where])[0] for where in ("cuda", "cpu")}
+    card, cpu = out["cuda"], out["cpu"]
+    check(len(card) == len(cpu) == 3 and card[0] == cpu[0] and "different lengths" in card[0],
+          f"vectordistance printed {card}, the CPU {cpu}")
+    for a, b in zip(card[1:], cpu[1:]):
+        va, vb = float(a.split(": ")[1]), float(b.split(": ")[1])
+        check(a.split(": ")[0] == b.split(": ")[0] and abs(va - vb) <= 1e-6 * abs(vb), f"vectordistance {a} vs {b}")
+    print(f"vectordistance --device cuda on {len(series) * 2 // 3} and {len(rgb_series)} hues: "
+          f"{' | '.join(card[1:])}; CPU: {' | '.join(cpu[1:])} (within 1e-6)")
+
+
+def surface_phases(dev, stamp: str, frames: np.ndarray, series: np.ndarray, rgb_series: np.ndarray) -> dict:
+    """Phases 5m-5q at the clip's size, each run with the kernel launch
+    counts set to 0 just before it and read just after: the native decoder
+    and its stream, EPE against cv2, drawgrids, the kmeangrids cell-tree
+    path and vectordistance. Returns the launches by path."""
+    import tempfile
+
+    from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams
+    from opticalflowclustering_tpu_torch.io import video as io_video
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.pipeline.bounce import PipelineConfig
+
+    check(have_cv2(), "the native decoder's clip, EPE and the grid CLIs need cv2, which is not importable")
+    launches = {}
+
+    def counted(name, fn):
+        kw.reset_launches()
+        result = fn()
+        sync(dev)
+        launches[name] = dict(kw.LAUNCHES)
+        return result
+
+    with tempfile.TemporaryDirectory(prefix="ofc-smoke-") as tmp:
+        clip = os.path.join(tmp, "clip.avi")
+        io_video.write_video_mjpg(clip, frames, 30.0)
+        fast = PipelineConfig(flow=FarnebackParams(warp_mode="fast"))
+        native = native_decode_phase(dev, stamp, frames, fast, clip)
+        if native:
+            launches["native_stream"] = native
+        counted("epe", lambda: epe_phase(dev, stamp, frames))
+        tree = counted("drawgrids", lambda: drawgrids_phase(dev, stamp, clip, tmp))
+        counted("celltree", lambda: celltree_phase(dev, stamp, clip, tree, tmp))
+        counted("vectordistance", lambda: vectordistance_phase(series, rgb_series, tmp))
+    for name in ("drawgrids", "celltree", "vectordistance"):
+        check(launches[name] == {"warp_m": 0, "box_solve": 0}, f"{name} launched {launches[name]}")
+    return launches
+
+
 def cell_points(flow_bgr, grid):
     """Every grid cell of the [n, H, W, 3] uint8 frames (a tensor), cut to
     its top-left 50×50 crop (smaller where the grid step is), through
@@ -524,10 +781,12 @@ def quantize_phase(dev, stamp: str, frame: np.ndarray) -> None:
     codes apart. A float rounding may move a centre across a rounding
     boundary (its pixels then differ by a code or two after lab2bgr) or a
     pixel to another centre at a near-tie (that pixel differs by more).
-    Each is timed on the card."""
+    Each is timed on the card. Then the count of bgr2lab codes that differ
+    between the card and the CPU over 2^20 seeded pixels (printed)."""
     import torch
 
     from opticalflowclustering_tpu_torch.extras.quantize import quantize_colors
+    from opticalflowclustering_tpu_torch.ops.lab import bgr2lab
 
     h, w = frame.shape[:2]
     img = torch.from_numpy(frame)
@@ -547,6 +806,11 @@ def quantize_phase(dev, stamp: str, frame: np.ndarray) -> None:
         print(f"quantize_colors {w}x{h} k=8 method={method}: {colours} colours; card vs CPU pixels equal "
               f"{same:.6f}, more than 3 codes apart {far:.6f} (tolerance 0.001), largest gap {int(gap.max())}; time {t * 1e3:.1f} ms ({h * w / t / 1e6:.1f} Mpx/s, median of "
               f"{REPEATS}) {stamp}")
+    # The LAB step quantize runs first: its codes on the card against the CPU's.
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (1 << 20, 3), dtype=np.uint8))
+    gap = (bgr2lab(x.to(dev)).cpu().int() - bgr2lab(x).int()).abs()
+    print(f"bgr2lab card vs CPU over 2^20 seeded BGR pixels: {int((gap > 0).sum())} of {gap.numel()} codes "
+          f"differ, largest gap {int(gap.max())}")
 
 
 def run_cli(main, argv):
@@ -1027,6 +1291,12 @@ def main() -> int:
     path_launches.update(queue_phase(dev, stamp, clips, fast))
     path_launches.update(temporal_phase(dev, np.stack([frames[:16], frames[16:32]]), fast))
     findcosine_phase(series.cpu().numpy(), 20, 5)
+
+    # Phases 5m-5q: the native decoder and its stream, EPE against cv2, and
+    # the grid CLIs at 1280x720, each run with the launch counts set to 0
+    # just before and read just after.
+    path_launches.update(surface_phases(dev, stamp, frames, series.cpu().numpy(),
+                                        outs["fast"]["rgb_hue_table"].mean(axis=1)))
 
     # Phases 5f-5l: the clustering and model paths at 1280x720, each run
     # with the launch counts set to 0 just before and read just after.

@@ -26,10 +26,14 @@ Layout (mirrors the JAX package):
               torch.distributed
   extras/     colour quantization, non-maximum suppression
   io/         video decode and encode on the host, the prefetch thread,
-              the real-time VideoStream, image-tree readers
+              the real-time VideoStream, image-tree readers, and the ctypes
+              boundary to the native decoder (fastio)
+  native/     the C++ host-IO runtime (MJPEG-AVI and PNG decode), built
+              with g++ at first use
   compat/     byte-compatible CSV writers
   cli/        kmeangrids, computeopticalflow, findcosine, processqueue,
-              colorkmeans, classify, detect, realtime, trainbounce
+              colorkmeans, classify, detect, realtime, trainbounce,
+              drawgrids, vectordistance
   scripts/    the probe scripts (gather_cost_probe, profile_r4) and the
               bench clips
   utils/      timing and tracing (StageTimer, ThroughputMeter, trace_to,
@@ -37,7 +41,8 @@ Layout (mirrors the JAX package):
   convert.py  carries configs, constant tables and flax parameters across
               from the JAX side
 
-This package imports torch and numpy only; it never imports jax.
+This package imports torch, numpy and (inside the functions that decode,
+encode or draw) cv2; it never imports jax.
 """
 
 __version__ = "0.1.0"

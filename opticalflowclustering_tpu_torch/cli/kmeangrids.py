@@ -3,15 +3,18 @@
 `k-means-color-clustering/KmeanGrids.py`, usage `KmeanGrids.py:406`):
 
   -d OutImgs/<video> -c 1 -f addnew.csv --noyolo --nocontour --path <video>
-  [--device cuda|cpu] [--warp-mode fast|fast16|exact]
+  [--device cuda|cpu] [--warp-mode fast|fast16|exact] [--stream]
 
 Writes `OutCSV/<video>.csv` (hue table) and appends the per-cell rows to the
--f CSV in the addnew.csv format. The port runs the video path without
-overlays, decoded at once or, with `--stream`, chunk by chunk on a thread
-that overlaps the card (`pipeline.bounce.process_video_stream`; the same
-tables). YOLO/contour overlays and the phase-2-only cell-tree path (which
-the JAX CLI also takes when `--path` is a Git-LFS pointer stub) are not
-ported yet and exit with a message saying so.
+-f CSV in the addnew.csv format. With a video at `--path` it runs flow, grid
+and clustering on the device, decoded at once or, with `--stream`, chunk by
+chunk on a thread that overlaps the card (`pipeline.bounce.
+process_video_stream`; the same tables). When `--path` is no file, or is a
+Git-LFS pointer stub (as every .mp4 of the reference tree is), it clusters
+the OutImgs cell tree at `-d` instead (the reference's phase-2-only run:
+`io.images.read_cell_tree` → `preprocess_cells_rgba` → `dominant_hue_k1`),
+as the JAX CLI does. YOLO/contour overlays of the video path are not ported
+yet and exit with a message saying so.
 """
 
 from __future__ import annotations
@@ -64,49 +67,62 @@ def parse_arguments(argv=None):
 
 def main(argv=None):
     args = parse_arguments(argv)
-    # argparse store_false: the flags default True, and passing --noyolo /
-    # --nocontour turns the overlays off (`KmeanGrids.py:255-257,353-354`).
-    if args["noyolo"] or args["nocontour"]:
-        raise SystemExit(
-            "YOLO/contour overlays are not ported to the PyTorch package yet; "
-            "pass --noyolo --nocontour"
-        )
-    if not os.path.isfile(args["path"]):
-        raise SystemExit(
-            f"{args['path']} is not a video file; the phase-2-only cell-tree "
-            "path is not ported to the PyTorch package yet"
-        )
-    from opticalflowclustering_tpu_torch.io.video import is_lfs_pointer
-
-    if is_lfs_pointer(args["path"]):
-        # The reference commits every .mp4 as a Git-LFS pointer stub; the JAX
-        # CLI then clusters the committed cell tree instead.
-        raise SystemExit(
-            f"{args['path']} is a Git-LFS pointer stub, not video data; the "
-            "phase-2-only cell-tree path is not ported to the PyTorch package yet"
-        )
+    rb_swap = not args["no_rb_swap"]
 
     from opticalflowclustering_tpu_torch.compat.writers import (
         append_cluster_centers_rows,
         write_hue_table_csv,
     )
-    from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams
-    from opticalflowclustering_tpu_torch.pipeline.bounce import (
-        PipelineConfig,
-        process_video_file,
-        process_video_stream,
-    )
-
-    cfg = PipelineConfig(
-        rb_swap=not args["no_rb_swap"],
-        emit_flow_bgr=False,
-        flow=FarnebackParams(warp_mode=args["warp_mode"]),
-    )
-    run = process_video_stream if args["stream"] else process_video_file
-    out = run(args["path"], cfg, args["max_frames"], args["device"])
-    hue_table = out["hue_table"]
+    from opticalflowclustering_tpu_torch.io.video import is_lfs_pointer
 
     video_name = os.path.basename(args["dir"].rstrip("/\\"))
+    use_video = os.path.isfile(args["path"])
+    if use_video and is_lfs_pointer(args["path"]):
+        # The reference commits every .mp4 as a Git-LFS pointer stub; fall
+        # back to the committed OutImgs cell tree (phase-2-only) explicitly.
+        print(f"{args['path']} is a Git-LFS pointer stub, not video data; "
+              f"clustering the committed cell tree at {args['dir']} instead")
+        use_video = False
+
+    if use_video:
+        # argparse store_false: the flags default True, and passing --noyolo /
+        # --nocontour turns the overlays off (`KmeanGrids.py:255-257,353-354`).
+        if args["noyolo"] or args["nocontour"]:
+            raise SystemExit(
+                "YOLO/contour overlays are not ported to the PyTorch package yet; "
+                "pass --noyolo --nocontour"
+            )
+        from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams
+        from opticalflowclustering_tpu_torch.pipeline.bounce import (
+            PipelineConfig,
+            process_video_file,
+            process_video_stream,
+        )
+
+        cfg = PipelineConfig(
+            rb_swap=rb_swap,
+            emit_flow_bgr=False,
+            flow=FarnebackParams(warp_mode=args["warp_mode"]),
+        )
+        run = process_video_stream if args["stream"] else process_video_file
+        out = run(args["path"], cfg, args["max_frames"], args["device"])
+        hue_table, centroids = out["hue_table"], out["centroids"]
+    else:
+        import torch
+
+        from opticalflowclustering_tpu_torch.features.dominant_color import (
+            dominant_hue_k1,
+            preprocess_cells_rgba,
+        )
+        from opticalflowclustering_tpu_torch.io.images import read_cell_tree
+        from opticalflowclustering_tpu_torch.runtime import resolve_device
+
+        dev = resolve_device(args["device"])
+        cells = torch.from_numpy(read_cell_tree(args["dir"], args["max_frames"])).to(dev)
+        with torch.inference_mode():
+            cen, hue = dominant_hue_k1(preprocess_cells_rgba(cells, rb_swap=rb_swap))
+        hue_table, centroids = hue.cpu().numpy(), cen.cpu().numpy()
+
     os.makedirs("OutCSV", exist_ok=True)
     write_hue_table_csv(f"OutCSV/{video_name}.csv", hue_table)
     print(
@@ -122,7 +138,7 @@ def main(argv=None):
     append_cluster_centers_rows(
         args["csv"],
         names=names,
-        centroids=np.asarray(out["centroids"]).reshape(-1, 4),
+        centroids=np.asarray(centroids).reshape(-1, 4),
         hues=np.asarray(hue_table).reshape(-1),
     )
 

@@ -1,6 +1,7 @@
-"""Sliding-window signature matching, the bounce classifier (port of
+"""Sliding-window signature matching, the bounce classifier, and the
+whole-matrix vector distances (port of
 `opticalflowclustering_tpu/cluster/matcher.py`; reference
-`findCosineDifferentVectors.py:52-66`)."""
+`findCosineDifferentVectors.py:52-66`, `computeVectorDistance.py`)."""
 
 from __future__ import annotations
 
@@ -31,3 +32,21 @@ def match_signature(
     max_sim = sims.max()
     hits = torch.nonzero(sims == max_sim).flatten()
     return max_sim, hits[-1]
+
+
+def cosine_similarity_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sklearn.metrics.pairwise.cosine_similarity for [n,d]×[m,d] → [n,m] in
+    float32 (`computeVectorDistance.py:3,26`)."""
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    an = a / torch.linalg.vector_norm(a, dim=-1, keepdim=True).clamp_min(1e-30)
+    bn = b / torch.linalg.vector_norm(b, dim=-1, keepdim=True).clamp_min(1e-30)
+    return an @ bn.T
+
+
+def rowwise_euclidean_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Σ_i ‖a_i − b_i‖ over the common prefix of rows, in float32
+    (`computeVectorDistance.py:32-38`)."""
+    m = min(a.shape[0], b.shape[0])
+    d = a[:m].to(torch.float32) - b[:m].to(torch.float32)
+    return torch.sqrt(torch.sum(d * d, dim=-1)).sum()

@@ -64,16 +64,18 @@ def append_cluster_centers_rows(
         w = csv.writer(f)
         if header and fresh:
             w.writerow(["File name", "Cluster 1", "HSV Cluster 1", "Hue 0"])
-        for name, cen, hue in zip(names, centroids, hues):
-            cen_f = np.asarray(cen, dtype=np.float64)
-            c0, c1, c2 = int(cen_f[0]), int(cen_f[1]), int(cen_f[2])
-            hsv_arr = _hsv_1x1(np.array([c0, c1, c2], np.uint8))
-            w.writerow([name, str(cen_f), str(hsv_arr), int(hue)])
+        cen_f = centroids.astype(np.float64).reshape(len(centroids), -1)
+        # Each row's [[[h s v]]]: the truncated BGR centroid as a 1×1 image,
+        # converted for all rows in one call.
+        hsv = _hsv_1x1(cen_f[:, :3].astype(np.int64).astype(np.uint8))
+        for name, cen, hsv_arr, hue in zip(names, cen_f, hsv, hues):
+            w.writerow([name, str(cen), str(hsv_arr), int(hue)])
 
 
 def _hsv_1x1(bgr: np.ndarray) -> np.ndarray:
-    """The [[[h s v]]] uint8 array the reference stringifies."""
-    return bgr2hsv(torch.from_numpy(bgr.reshape(1, 1, 3))).numpy()
+    """[N, 3] uint8 BGR → the [N, 1, 1, 3] uint8 HSV arrays the reference
+    stringifies, one [[[h s v]]] per row."""
+    return bgr2hsv(torch.from_numpy(bgr.reshape(-1, 1, 1, 3))).numpy()
 
 
 def write_optical_flow_csv(path: str, mean_magnitudes: np.ndarray) -> None:

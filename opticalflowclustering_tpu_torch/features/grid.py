@@ -32,6 +32,35 @@ class GridParams:
         return height // self.rows, width // self.cols
 
 
+def extract_cells(frames: torch.Tensor, grid: GridParams) -> torch.Tensor:
+    """[..., H, W, C] → [..., rows*cols, ys, xs, C]: the reference's ROIs
+    `frame[y1:y2, x1:x2]` (`KmeanGrids.py:85`) in its row-major order."""
+    h, w, c = frames.shape[-3], frames.shape[-2], frames.shape[-1]
+    ys, xs = grid.steps(h, w)
+    lead = tuple(frames.shape[:-3])
+    x = frames[..., : grid.rows * ys, : grid.cols * xs, :]
+    x = x.reshape(lead + (grid.rows, ys, grid.cols, xs, c)).movedim(-3, -4)
+    return x.reshape(lead + (grid.rows * grid.cols, ys, xs, c))
+
+
+def whiten_grid_lines(cells: torch.Tensor, grid: GridParams, own_rectangle: bool) -> torch.Tensor:
+    """The white 1-px grid lines drawn onto a cell tensor [..., cells, ys,
+    xs, C] (a new tensor): own_rectangle=True gives every cell a white top
+    row and left column (the OutCSV cells); False only the edges its
+    earlier-scanned neighbours drew (top row for grid-row>0, left column for
+    grid-col>0)."""
+    cells = cells.clone()
+    n = grid.rows * grid.cols
+    if own_rectangle:
+        top = left = torch.ones(n, dtype=torch.bool, device=cells.device)
+    else:
+        idx = torch.arange(n, device=cells.device)
+        top, left = idx // grid.cols > 0, idx % grid.cols > 0
+    cells[..., top, 0, :, :] = 255
+    cells[..., left, :, 0, :] = 255
+    return cells
+
+
 def whiten_frame_lines(
     frames: torch.Tensor, grid: GridParams, own_rectangle: bool
 ) -> torch.Tensor:

@@ -43,6 +43,12 @@ def bgr2gray(bgr: torch.Tensor) -> torch.Tensor:
     return y.to(torch.uint8)
 
 
+def rgb2gray(rgb: torch.Tensor) -> torch.Tensor:
+    """cv2.cvtColor(x, COLOR_RGB2GRAY) for uint8: bgr2gray of the flipped
+    channels."""
+    return bgr2gray(rgb.flip(-1))
+
+
 def bgr2rgb(x: torch.Tensor) -> torch.Tensor:
     """cv2.cvtColor(x, COLOR_BGR2RGB): a channel flip."""
     return x.flip(-1)

@@ -3,12 +3,18 @@
 
 OpenCV's uint8 Lab: sRGB linearised, linear XYZ (D65-scaled matrix), the
 0.008856 cube-root/linear split, then L·255/100 and a, b + 128 rounded to
-uint8. Computed in float32 with the JAX module's constants and order; the
-cube root is taken in float64 and rounded to float32 (PyTorch has no cbrt).
+uint8. Computed in float32 with the JAX module's constants and order.
+PyTorch has no cbrt: the cube root is taken as a float64 pow with the
+exponent float32(1/3), rounded to float32, which is how XLA computes
+`jnp.cbrt` on the CPU. Over all 2^24 BGR inputs, 9 of the 50,331,648 codes
+of `bgr2lab` and 10 of `lab2bgr` differ from eager JAX, each by 1
+(tests/test_torch_kmeans.py); float32 pow itself differs between torch and
+XLA, so exact equality is out of reach.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from opticalflowclustering_tpu_torch.runtime import f32
@@ -23,7 +29,7 @@ _M = (
 
 
 def _cbrt(t: torch.Tensor) -> torch.Tensor:
-    return t.clamp_min(0).to(torch.float64).pow(1.0 / 3.0).to(torch.float32)
+    return t.clamp_min(0).to(torch.float64).pow(float(np.float32(1.0 / 3.0))).to(torch.float32)
 
 
 def _f(t: torch.Tensor) -> torch.Tensor:

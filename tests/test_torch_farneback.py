@@ -226,6 +226,30 @@ def test_farneback_flow_epe_vs_jax(hw, mode):
     assert abs(float(np.median(got[..., 0])) - 1.5) < 0.5
 
 
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_farneback_flow_epe_vs_cv2_on_the_demo_clip(mode):
+    """cv2.calcOpticalFlowFarneback(prev, next, None, 0.5, 3, 15, 3, 5, 1.2,
+    0), the reference's call, ↔ tfb.farneback_flow (the plain versions on the
+    CPU) on 4 pairs of real footage (demo_out/601_3.avi frames 30–34, up to
+    ~33 px of motion): mean EPE < 1e-3 px on every pair, the gate of the
+    JAX package's tests/test_pallas_warp.py (measured ≤ 6.6e-7 px)."""
+    import os
+
+    import cv2
+
+    from opticalflowclustering_tpu_torch.io.video import read_video_bgr
+    from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
+
+    demo = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "demo_out", "601_3.avi")
+    gray = bgr2gray(torch.from_numpy(read_video_bgr(demo, 35)[30:]))
+    got = tfb.farneback_flow(gray[:-1], gray[1:], tfb.FarnebackParams(warp_mode=mode)).numpy()
+    for i in range(4):
+        want = cv2.calcOpticalFlowFarneback(gray[i].numpy(), gray[i + 1].numpy(), None, 0.5, 3, 15, 3, 5, 1.2, 0)
+        epe = float(np.sqrt(((got[i] - want) ** 2).sum(-1)).mean())
+        assert epe < 1e-3, (i, epe)
+    assert np.abs(got).max() > 10  # real motion
+
+
 def test_farneback_helpers_are_copies():
     """pyramid_plan, _poly_exp_consts and _border_taper are numpy copies of
     the JAX package's; each result is equal."""

@@ -114,20 +114,61 @@ def test_kmeangrids_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
         tcli.main(base + ["--nocontour"])
     with pytest.raises(SystemExit, match="overlays"):  # --stream is feature-only
         tcli.main(base + ["--noyolo", "--stream"])
-    with pytest.raises(SystemExit, match="cell-tree"):
-        tcli.main(["-d", "OutImgs/v", "-c", "1", "-f", "a.csv", "--path", "missing.mp4", "--noyolo", "--nocontour"])
+    # Where --path is no file, the cell tree at -d is clustered instead.
+    tree = _write_cell_tree(tmp_path / "OutImgs" / "v")
+    tcli.main(["-d", str(tree), "-c", "1", "-f", "a.csv", "--path", "missing.mp4", "--noyolo", "--nocontour",
+               "--device", "cpu"])
+    assert (tmp_path / "OutCSV" / "v.csv").read_bytes() == _jax_cell_tree_table(tmp_path, tree)
+    (tmp_path / "OutCSV" / "v.csv").unlink()
+    os.rmdir(tmp_path / "OutCSV")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         tcli.main(base + ["--noyolo", "--nocontour", "--max-frames", "3"])
     with pytest.raises(RuntimeError, match="cuda"):
         tcli.main(base + ["--noyolo", "--nocontour", "--stream"])
+    with pytest.raises(RuntimeError, match="cuda"):  # the cell-tree path too
+        tcli.main(["-d", str(tree), "-c", "1", "-f", "a.csv", "--path", "missing.mp4"])
     assert not (tmp_path / "OutCSV").exists()
 
 
-def test_kmeangrids_cli_refuses_an_lfs_pointer_stub(tmp_path, monkeypatch):
+def _write_cell_tree(root, frames=3, seed=0):
+    """A seeded OutImgs/<video> tree: `frames` folders of 350 8×9 PNG cells
+    with white top rows and left columns, as drawgrids --dump-cells writes."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    for f in range(frames):
+        d = root / str(f + 2)
+        d.mkdir(parents=True)
+        for c in range(ROWS * COLS):
+            cell = rng.integers(0, 256, (8, 9, 3), dtype=np.uint8)
+            cell[0], cell[:, 0] = 255, 255
+            cv2.imwrite(str(d / f"{c + 1}.png"), cell)
+    return root
+
+
+def _jax_cell_tree_table(tmp_path, tree):
+    """OutCSV bytes of the JAX CLI's cell-tree path on `tree`, run in a
+    directory of its own."""
+    from opticalflowclustering_tpu.cli import kmeangrids as jcli
+
+    d = tmp_path / "jax"
+    d.mkdir(exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        jcli.main(["-d", str(tree), "-c", "1", "-f", "a.csv", "--path", "missing.mp4", "--noyolo", "--nocontour"])
+    finally:
+        os.chdir(cwd)
+    return (d / "OutCSV" / f"{tree.name}.csv").read_bytes()
+
+
+def test_kmeangrids_cli_refuses_an_lfs_pointer_stub(tmp_path, monkeypatch, capsys):
     """A Git-LFS pointer stub where the video should be: the port's
-    is_lfs_pointer tells it from real media as the JAX package's does, and the
-    CLI exits with a message before it decodes or writes anything."""
+    is_lfs_pointer tells it from real media as the JAX package's does, and
+    the CLI refuses to decode it: it says so and clusters the committed cell
+    tree at -d instead, writing the OutCSV table the JAX CLI writes for that
+    tree and one -f row per cell."""
     from opticalflowclustering_tpu.io.video import is_lfs_pointer as jax_is_lfs
     from opticalflowclustering_tpu_torch.io.video import is_lfs_pointer
 
@@ -141,7 +182,13 @@ def test_kmeangrids_cli_refuses_an_lfs_pointer_stub(tmp_path, monkeypatch):
     for path in (str(stub), DEMO, str(tmp_path / "missing.mp4")):
         assert is_lfs_pointer(path) == jax_is_lfs(path)
     assert is_lfs_pointer(str(stub)) and not is_lfs_pointer(DEMO)
-    with pytest.raises(SystemExit, match="Git-LFS pointer stub"):
-        tcli.main(["-d", "OutImgs/v", "-c", "1", "-f", "a.csv", "--path", str(stub),
-                   "--noyolo", "--nocontour", "--device", "cpu"])
-    assert not (tmp_path / "OutCSV").exists() and not (tmp_path / "a.csv").exists()
+    tree = _write_cell_tree(tmp_path / "OutImgs" / "601_3", frames=2, seed=1)
+    capsys.readouterr()
+    tcli.main(["-d", str(tree), "-c", "1", "-f", "a.csv", "--path", str(stub),
+               "--noyolo", "--nocontour", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines == [f"{stub} is a Git-LFS pointer stub, not video data; clustering the committed cell "
+                     f"tree at {tree} instead", "OutCSV/601_3.csv: 2 frames x 350 cells"]
+    assert (tmp_path / "OutCSV" / "601_3.csv").read_bytes() == _jax_cell_tree_table(tmp_path, tree)
+    rows = (tmp_path / "a.csv").read_text().splitlines()
+    assert len(rows) == 2 * 350 and rows[0].startswith("2/1.png,[") and rows[-1].startswith("3/350.png,[")
