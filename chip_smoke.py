@@ -11,11 +11,8 @@ signature, then drives the video-file paths at 1280x720 with their kernel
 launches counted: the stream's device loop through its prefetch thread
 (tables equal to process_frames'), the sequential and the dp×sp queue on a
 2×2 mesh of the card (artifacts equal), the temporal split (equal to the
-unsharded pipeline) and the findcosine CLI; then the native MJPEG decoder
-(built from the checkout's C++ source, or reported unavailable with the
-compiler's words) against cv2, its stream with its kernel launches counted
-(tables equal to process_frames' of the natively decoded frames), flow EPE
-against cv2.calcOpticalFlowFarneback in every warp mode, the drawgrids CLI
+unsharded pipeline) and the findcosine CLI; then flow EPE against
+cv2.calcOpticalFlowFarneback in every warp mode, the drawgrids CLI
 (against itself on the CPU), the kmeangrids cell-tree path over drawgrids'
 16,800 cell PNGs (equal to grid_cluster_stage) and the vectordistance CLI;
 then the clustering and model
@@ -464,95 +461,14 @@ def findcosine_phase(series: np.ndarray, start: int, length: int) -> None:
     print(f"findcosine --device cuda: {' | '.join(lines)} (window planted at {start})")
 
 
-def codec_headers() -> tuple[bool, str]:
-    """Whether this host's g++ finds jpeglib.h and png.h (what the native
-    decoder includes), and the compiler's words when it does not."""
-    import subprocess
-
-    for header in ("jpeglib.h", "png.h"):
-        try:
-            r = subprocess.run(["g++", "-E", "-x", "c++", "-"], input=f"#include <{header}>\n",
-                               capture_output=True, text=True, timeout=60)
-        except (OSError, subprocess.SubprocessError) as e:
-            return False, f"g++ -E: {e}"
-        if r.returncode != 0:
-            return False, r.stderr.strip()
-    return True, "g++ finds jpeglib.h and png.h"
-
-
-def native_decode_phase(dev, stamp: str, frames: np.ndarray, cfg, path: str) -> dict:
-    """Phase 5m: the native MJPEG decoder (io.fastio, built from the port's
-    native/fastio.cpp) on `frames` written as an MJPG AVI at `path`. Prints
-    which decoder ran and why; where the codec headers are there, a build or
-    decode that fails fails the phase, and where they are not, the phase says
-    the decoder is unavailable and runs nothing native. Then: native decode
-    frames/s beside cv2's (in turns); the native frames within 5 codes (mean
-    < 1) of cv2's; process_video_stream(native=True) in `cfg`'s mode with its
-    launches counted, its tables equal to process_frames' of the natively
-    decoded frames (integer tables bitwise); and pairs/s of the native and
-    the cv2 stream, in turns. Returns the native stream's launches."""
-    from opticalflowclustering_tpu_torch.io import fastio
-    from opticalflowclustering_tpu_torch.io import video as io_video
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
-    from opticalflowclustering_tpu_torch.pipeline.bounce import process_frames, process_video_stream
-
-    n, h, w = frames.shape[:3]
-    headers, why = codec_headers()
-    ok = fastio.available()
-    print(f"native decoder: codec headers {'found' if headers else 'missing'} ({why}); "
-          f"fastio.available() = {ok}; build into {fastio.BUILD_DIR}"
-          + ("" if ok else f"; build error verbatim:\n{fastio.build_error()}"))
-    if not ok:
-        check(not headers, "the codec headers are there but the native decoder did not build")
-        print("native decoder unavailable on this host: decode and stream stay on cv2; no native number below")
-        return {}
-    check(fastio.probe_mjpeg_avi(path) == (n, h, w), f"probe {fastio.probe_mjpeg_avi(path)}")
-    native = fastio.decode_mjpeg_avi(path)
-    ref = io_video.read_video_bgr(path)
-    gap = np.abs(native.astype(np.int16) - ref.astype(np.int16))
-    check(native.shape == ref.shape == (n, h, w, 3), f"native decode {native.shape} vs cv2 {ref.shape}")
-    check(int(gap.max()) <= 5 and float(gap.mean()) < 1.0,
-          f"native decode vs cv2: largest gap {int(gap.max())}, mean {float(gap.mean())}")
-    check(np.array_equal(io_video.read_video_bgr(path, native=True), native), "read_video_bgr(native=True)")
-    decoders = {"native": lambda: fastio.decode_mjpeg_avi(path), "cv2": lambda: io_video.read_video_bgr(path)}
-    times = {k: [] for k in decoders}
-    for _ in range(REPEATS):
-        for name, fn in decoders.items():
-            times[name].append(timed_s(dev, fn))
-    fps = {k: n / float(np.median(v)) for k, v in times.items()}
-    print(f"decode {n} MJPG frames {w}x{h}: native {fps['native']:.1f} frames/s "
-          f"({fastio._threads()} threads), cv2 {fps['cv2']:.1f} frames/s (median of {REPEATS}, in turns); native "
-          f"vs cv2 largest gap {int(gap.max())} codes, mean {float(gap.mean()):.4f} (contract <= 5, < 1) {stamp}")
-
-    kw.reset_launches()
-    got = process_video_stream(path, cfg, None, dev, native=True)
-    sync(dev)
-    launches = dict(kw.LAUNCHES)
-    runs = kernel_runs(n - 1, cfg.chunk, h, w, cfg.flow)
-    check(launches == {"warp_m": runs, "box_solve": runs}, f"native stream: expected {runs} launches, got {launches}")
-    rel = check_tables(got, process_frames(native, dataclasses.replace(cfg, emit_flow_bgr=False), dev),
-                       "native stream vs process_frames of the native decode")
-    print(f"native stream {n}x{h}x{w} warp_mode={cfg.flow.warp_mode}: launches {launches} (design {runs}); "
-          f"tables equal to process_frames' of the natively decoded frames (integer tables bitwise, "
-          f"mean_magnitude rel diff {rel:.3g})")
-    streams = {"native stream": lambda: process_video_stream(path, cfg, None, dev, native=True),
-               "cv2 stream": lambda: process_video_stream(path, cfg, None, dev)}
-    times = {k: [] for k in streams}
-    for _ in range(REPEATS):
-        for name, fn in streams.items():
-            times[name].append(timed_s(dev, fn))
-    for name, ts in times.items():
-        print(f"time {name} {n}x{h}x{w} (decode included): {(n - 1) / float(np.median(ts)):.2f} pairs/s "
-              f"(median of {REPEATS}, in turns, runs {', '.join(f'{t:.3f}' for t in ts)} s) {stamp}")
-    return launches
-
-
-def epe_phase(dev, stamp: str, frames: np.ndarray) -> None:
+def epe_phase(dev, stamp: str, frames: np.ndarray) -> int:
     """Phase 5n: mean EPE of farneback_flow on the card against
     cv2.calcOpticalFlowFarneback(prev, next, None, 0.5, 3, 15, 3, 5, 1.2, 0)
     in each warp mode, on 4 pairs of `frames` and 4 pairs of real footage
     (demo_out/601_3.avi frames 30–34): below 1e-3 px for exact and fast,
-    0.01 px for fast16 (the JAX package's gates, tests/test_pallas_warp.py)."""
+    0.01 px for fast16 (the JAX package's gates, tests/test_pallas_warp.py).
+    Returns the launches of each pipeline kernel that the design makes: one
+    batched flow per clip in each kernel mode (fast, fast16)."""
     import cv2
     import torch
 
@@ -561,6 +477,7 @@ def epe_phase(dev, stamp: str, frames: np.ndarray) -> None:
     from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
 
     gates = {"exact": 1e-3, "fast": 1e-3, "fast16": 1e-2}
+    design = 0
     clips = {f"synthetic {frames.shape[2]}x{frames.shape[1]}": frames[:5],
              "demo_out/601_3.avi 220x232": io_video.read_video_bgr("demo_out/601_3.avi", 35)[30:35]}
     for name, clip in clips.items():
@@ -577,6 +494,8 @@ def epe_phase(dev, stamp: str, frames: np.ndarray) -> None:
             parts.append(f"{mode} {float(epe.mean()):.3g} (worst pair {float(epe.max()):.3g}, gate {gate:g})")
         print(f"EPE vs cv2 {cv2.__version__} calcOpticalFlowFarneback, 4 pairs of {name} (max |flow| "
               f"{float(np.abs(want).max()):.1f} px), mean px: {'; '.join(parts)} {stamp}")
+        design += 2 * kernel_runs(4, 4, clip.shape[1], clip.shape[2], FarnebackParams())
+    return design
 
 
 def drawgrids_phase(dev, stamp: str, clip: str, tmp: str) -> str:
@@ -674,18 +593,17 @@ def vectordistance_phase(series: np.ndarray, rgb_series: np.ndarray, tmp: str) -
 
 
 def surface_phases(dev, stamp: str, frames: np.ndarray, series: np.ndarray, rgb_series: np.ndarray) -> dict:
-    """Phases 5m-5q at the clip's size, each run with the kernel launch
-    counts set to 0 just before it and read just after: the native decoder
-    and its stream, EPE against cv2, drawgrids, the kmeangrids cell-tree
-    path and vectordistance. Returns the launches by path."""
+    """Phases 5n-5q at the clip's size, each run with the kernel launch
+    counts set to 0 just before it and read just after and held against its
+    design: EPE against cv2 (both kernels in fast and fast16), drawgrids, the
+    kmeangrids cell-tree path and vectordistance (no kernel). Returns the
+    launches by path."""
     import tempfile
 
-    from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams
     from opticalflowclustering_tpu_torch.io import video as io_video
     from opticalflowclustering_tpu_torch.kernels import warp as kw
-    from opticalflowclustering_tpu_torch.pipeline.bounce import PipelineConfig
 
-    check(have_cv2(), "the native decoder's clip, EPE and the grid CLIs need cv2, which is not importable")
+    check(have_cv2(), "EPE against cv2 and the grid CLIs' MJPG clip need cv2, which is not importable")
     launches = {}
 
     def counted(name, fn):
@@ -698,11 +616,9 @@ def surface_phases(dev, stamp: str, frames: np.ndarray, series: np.ndarray, rgb_
     with tempfile.TemporaryDirectory(prefix="ofc-smoke-") as tmp:
         clip = os.path.join(tmp, "clip.avi")
         io_video.write_video_mjpg(clip, frames, 30.0)
-        fast = PipelineConfig(flow=FarnebackParams(warp_mode="fast"))
-        native = native_decode_phase(dev, stamp, frames, fast, clip)
-        if native:
-            launches["native_stream"] = native
-        counted("epe", lambda: epe_phase(dev, stamp, frames))
+        epe = counted("epe", lambda: epe_phase(dev, stamp, frames))
+        check(launches["epe"] == {"warp_m": epe, "box_solve": epe},
+              f"epe: expected {epe} launches of each kernel, got {launches['epe']}")
         tree = counted("drawgrids", lambda: drawgrids_phase(dev, stamp, clip, tmp))
         counted("celltree", lambda: celltree_phase(dev, stamp, clip, tree, tmp))
         counted("vectordistance", lambda: vectordistance_phase(series, rgb_series, tmp))
@@ -1292,9 +1208,8 @@ def main() -> int:
     path_launches.update(temporal_phase(dev, np.stack([frames[:16], frames[16:32]]), fast))
     findcosine_phase(series.cpu().numpy(), 20, 5)
 
-    # Phases 5m-5q: the native decoder and its stream, EPE against cv2, and
-    # the grid CLIs at 1280x720, each run with the launch counts set to 0
-    # just before and read just after.
+    # Phases 5n-5q: EPE against cv2 and the grid CLIs at 1280x720, each run
+    # with the launch counts set to 0 just before and read just after.
     path_launches.update(surface_phases(dev, stamp, frames, series.cpu().numpy(),
                                         outs["fast"]["rgb_hue_table"].mean(axis=1)))
 

@@ -26,10 +26,7 @@ Layout (mirrors the JAX package):
               torch.distributed
   extras/     colour quantization, non-maximum suppression
   io/         video decode and encode on the host, the prefetch thread,
-              the real-time VideoStream, image-tree readers, and the ctypes
-              boundary to the native decoder (fastio)
-  native/     the C++ host-IO runtime (MJPEG-AVI and PNG decode), built
-              with g++ at first use
+              the real-time VideoStream, image-tree readers
   compat/     byte-compatible CSV writers
   cli/        kmeangrids, computeopticalflow, findcosine, processqueue,
               colorkmeans, classify, detect, realtime, trainbounce,

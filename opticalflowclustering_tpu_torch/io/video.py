@@ -6,10 +6,9 @@ uint8 array (`read_video_bgr`) or chunk by chunk on a background thread
 previous chunk. Encode mirrors `cv2.VideoWriter` with the reference's MJPG
 fourcc (`computeOpticalFlow.py:27-33`). cv2 is imported inside the functions
 that decode or encode, so importing this module loads neither cv2 nor any
-part of the JAX package. `native=True` sends an MJPEG AVI to the port's C++
-decoder (`io.fastio`, libjpeg, whose rounding differs from cv2's by a few
-codes) and every other file to cv2. `VideoStream` is the real-time demo's
-paced threaded source.
+part of the JAX package. The JAX package's `native=True` branch (its C++
+MJPEG decoder, whose rounding differs from cv2's) has no counterpart here.
+`VideoStream` is the real-time demo's paced threaded source.
 """
 
 from __future__ import annotations
@@ -55,22 +54,9 @@ def _cv2_frames(path: str, max_frames: int | None) -> Iterator[np.ndarray]:
         cap.release()
 
 
-def read_video_bgr(path: str, max_frames: int | None = None, native: bool = False) -> np.ndarray:
-    """Decode a video file → [N, H, W, 3] uint8 BGR frames (at most
-    `max_frames`), with cv2.
-
-    native=True decodes an MJPEG AVI with the threaded C++ decoder
-    (`io.fastio.decode_mjpeg_avi`) instead: faster, but its JPEG rounding
-    differs from cv2's by up to 5 codes (mean < 1), so golden-parity paths
-    keep cv2. The gate is that of the stream: the RIFF sniff, then whether
-    the runtime is available, then the full probe; a file that fails one of
-    them (an XVID AVI, an mp4) or a host without the runtime decodes with
-    cv2."""
-    if native:
-        from opticalflowclustering_tpu_torch.io import fastio
-
-        if fastio.is_mjpeg_avi(path) and fastio.available() and fastio.probe_mjpeg_avi(path):
-            return fastio.decode_mjpeg_avi(path, max_frames)
+def read_video_bgr(path: str, max_frames: int | None = None) -> np.ndarray:
+    """Decode a video file with cv2 → [N, H, W, 3] uint8 BGR frames (at most
+    `max_frames`)."""
     frames = list(_cv2_frames(path, max_frames))
     if not frames:
         raise ValueError(f"no frames decoded from {path}")

@@ -12,8 +12,7 @@ Frame pairs are independent, so a video goes through in chunks of
 for) come back to the host. `process_video_stream` also overlaps the host
 with the card: a thread decodes the next chunk while the card computes the
 current one, and chunk k's tables are copied back only after chunk k+1 has
-been enqueued; with `native=True` an MJPEG AVI is decoded by the port's
-threaded C++ decoder (`io.fastio`) instead of cv2.
+been enqueued.
 """
 
 from __future__ import annotations
@@ -33,7 +32,6 @@ from opticalflowclustering_tpu_torch.features.dominant_color import (
 from opticalflowclustering_tpu_torch.features.grid import GridParams, grid_mean_hue
 from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams, farneback_flow
 from opticalflowclustering_tpu_torch.flow.render import render_flow_hsv_bgr
-from opticalflowclustering_tpu_torch.io import fastio
 from opticalflowclustering_tpu_torch.io import video as io_video
 from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
 from opticalflowclustering_tpu_torch.ops.polar import magnitude
@@ -145,21 +143,11 @@ def process_video_stream(
     cfg: PipelineConfig = PipelineConfig(),
     max_frames: int | None = None,
     device: str | torch.device = "cuda",
-    native: bool = False,
 ) -> dict[str, np.ndarray]:
     """Decode-inclusive pipeline over a video file on disk: a background
     thread decodes the next chunk while the card computes the current one
     (`io.video.stream_video_chunks`), unlike the reference's loop, which
     decodes inside its hot loop (`KmeanGrids.py:156,180-185`).
-
-    native=True decodes an MJPEG AVI with the threaded C++ decoder, whose
-    done flags release each batch as soon as its frames are decoded
-    (`io.fastio.stream_mjpeg_avi`); its JPEG rounding differs from cv2's by a
-    few codes, so golden-parity paths keep the default. The gate: the
-    12-byte RIFF sniff (an mp4 never touches the runtime), then whether the
-    runtime is available, then the full container and codec probe (an XVID
-    AVI passes the sniff but not the probe); a file that fails one of them
-    streams through cv2, as in the JAX package.
 
     Feature-only whatever `cfg.emit_flow_bgr` says: the same keys and dtypes
     as `process_frames` without the rendered flow (hue_table uint8,
@@ -167,13 +155,7 @@ def process_video_stream(
     same values, since chunks share their overlap frame and every stage
     after the flow is per pair. Fewer than 2 frames raise ValueError."""
     dev = resolve_device(device)
-    probe = None
-    if native and fastio.is_mjpeg_avi(path) and fastio.available():
-        probe = fastio.probe_mjpeg_avi(path)
-    if probe is not None:
-        chunks = fastio.stream_mjpeg_avi(path, cfg.chunk, overlap=1, max_frames=max_frames, probe=probe)
-    else:
-        chunks = io_video.stream_video_chunks(path, cfg.chunk, overlap=1, max_frames=max_frames)
+    chunks = io_video.stream_video_chunks(path, cfg.chunk, overlap=1, max_frames=max_frames)
     try:
         tables = _stream_tables(chunks, cfg, dev)
     finally:
@@ -189,8 +171,7 @@ def _stream_tables(
 ) -> dict[str, np.ndarray] | None:
     """The device loop of `process_video_stream`, run on the caller's thread
     over ([C+1, H, W, 3] uint8, n_valid) batches of one fixed shape (from
-    `io.video.prefetch_chunks` or `io.fastio.stream_mjpeg_avi`); None when
-    there is no batch.
+    `io.video.prefetch_chunks`); None when there is no batch.
 
     On a CUDA device the host and the card overlap twice over. Each batch is
     staged in one of two pinned host buffers and copied up with

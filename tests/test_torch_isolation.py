@@ -150,7 +150,7 @@ def test_port_sources_import_nothing_of_jax(tmp_path):
                 "extras/quantize.py", "extras/nms.py", "io/images.py", "cli/colorkmeans.py",
                 "models/flow_cnn.py", "models/cnn.py", "models/bounce_classifier.py", "models/layers.py",
                 "cli/classify.py", "cli/detect.py", "cli/realtime.py", "cli/trainbounce.py",
-                "parallel/train.py", "convert.py", "io/fastio.py", "cli/drawgrids.py",
+                "parallel/train.py", "convert.py", "cli/drawgrids.py",
                 "cli/vectordistance.py"):
         assert os.path.join(port, rel) in sources, rel
     bad = {os.path.relpath(p, REPO): f for p in sources if (f := _foreign_imports(p))}
@@ -169,27 +169,6 @@ def test_port_sources_import_nothing_of_jax(tmp_path):
     assert _foreign_imports(str(probe)) == [
         (3, "opticalflowclustering_tpu.io.video"), (4, "jax.numpy"), (4, "jaxlib"), (5, "flax"),
         (6, "optax"), (6, "pandas")]
-
-
-def test_native_source_is_the_ports_own_and_builds_outside_the_packages():
-    """The port's C++ decoder lives in its own tree (native/ holds the
-    source and nothing built), includes only system and codec headers, and
-    io.fastio compiles it into <repo>/.torch_ext_build/fastio/, outside both
-    packages; importing io.fastio builds nothing."""
-    import re
-
-    from opticalflowclustering_tpu_torch.io import fastio
-
-    native = os.path.join(REPO, "opticalflowclustering_tpu_torch", "native")
-    assert sorted(os.listdir(native)) == ["fastio.cpp"]
-    assert str(fastio.SRC) == os.path.join(native, "fastio.cpp")
-    with open(fastio.SRC) as f:
-        includes = re.findall(r'^#include\s+(\S+)', f.read(), re.M)
-    assert includes and all(i.startswith("<") for i in includes), includes
-    assert str(fastio.BUILD_DIR) == os.path.join(REPO, ".torch_ext_build", "fastio")
-    assert fastio.SO.parent == fastio.BUILD_DIR
-    for pkg in ("opticalflowclustering_tpu", "opticalflowclustering_tpu_torch"):
-        assert not str(fastio.BUILD_DIR).startswith(os.path.join(REPO, pkg) + os.sep)
 
 
 def test_read_video_bgr_equals_the_jax_packages():
@@ -389,11 +368,9 @@ out = bounce._stream_tables(video.prefetch_chunks(iter(frames[0]), 2), cfg, torc
 assert out["hue_table"].shape == (3, 4)
 from opticalflowclustering_tpu_torch.cli import drawgrids, vectordistance
 from opticalflowclustering_tpu_torch.features import grid as fgrid
-from opticalflowclustering_tpu_torch.io import fastio
 cen, hue, rgb = bounce.grid_cluster_stage(frames[0], grid, True, "cpu")
 cells = fgrid.whiten_grid_lines(fgrid.extract_cells(torch.from_numpy(frames[0]), grid), grid, True)
 assert hue.shape == (4, 4) and cells.shape == (4, 4, 32, 32, 3)
-assert not fastio.is_mjpeg_avi("/dev/null")
 bad = [m for m in ("jax", "jaxlib", "cv2", "pandas") if m in sys.modules]
 print("LOADED", bad)
 """
@@ -401,8 +378,7 @@ print("LOADED", bad)
 
 def test_video_path_modules_import_no_jax_cv2_or_pandas():
     """In a fresh interpreter: import the video-file paths' modules (the
-    stream, the queue, parallel, the native decoder's boundary, the CLIs
-    computeopticalflow, findcosine, processqueue, drawgrids and
+    stream, the queue, parallel, the CLIs computeopticalflow, findcosine, processqueue, drawgrids and
     vectordistance, logging), run the temporal split, the stream's device
     loop on frames from memory, the grid/cluster stage and the cell tensor
     on the CPU; jax, cv2 and pandas stay unloaded."""
@@ -594,11 +570,9 @@ def test_chip_smoke_model_phases_rehearsal(monkeypatch, capsys):
 def test_chip_smoke_surface_phases_rehearsal(monkeypatch, capsys):
     """chip_smoke.surface_phases on the CPU: "cuda" resolves to the CPU in
     the pipeline and in every CLI, the kernel entries are counted plain
-    versions, one timing repeat, a 5-frame 144×256 clip. Where g++ finds
-    the codec headers the native decoder builds and its stream makes the
-    design's 1 chunk × levels × 3 iterations launches with tables equal to
-    process_frames' (elsewhere the phase reports the decoder unavailable);
-    EPE against cv2 passes its gates; drawgrids matches
+    versions, one timing repeat, a 5-frame 144×256 clip. EPE against cv2
+    passes its gates with the design's levels × 3 iterations launches of
+    each kernel per clip in fast and fast16; drawgrids matches
     itself at --max-frames 3 and dumps 4 × 350 cells, which the cell-tree
     path clusters to grid_cluster_stage's table; vectordistance agrees
     across devices; the grid CLIs launch no kernel."""
@@ -615,19 +589,12 @@ def test_chip_smoke_surface_phases_rehearsal(monkeypatch, capsys):
     zero = {"warp_m": 0, "box_solve": 0}
     per_flow = len(pyramid_plan(144, 256, bounce.FarnebackParams())) * 3
     demo_flow = len(pyramid_plan(232, 220, bounce.FarnebackParams())) * 3
-    if chip_smoke.codec_headers()[0]:
-        assert launches["native_stream"] == {"warp_m": per_flow, "box_solve": per_flow}
-        native = ("codec headers found", "fastio.available() = True", "decode 5 MJPG frames 256x144: native",
-                  "native stream 5x144x256 warp_mode=fast: launches", "time native stream 5x144x256",
-                  "time cv2 stream 5x144x256")
-    else:  # a host without jpeglib.h/png.h: the phase says so and runs nothing native
-        assert "native_stream" not in launches
-        native = ("codec headers missing", "native decoder unavailable on this host")
     epe = 2 * (per_flow + demo_flow)  # fast and fast16 on both clips
     assert launches["epe"] == {"warp_m": epe, "box_solve": epe}
     assert {k: launches[k] for k in ("drawgrids", "celltree", "vectordistance")} == {
         "drawgrids": zero, "celltree": zero, "vectordistance": zero}
-    for tag in native + ("4 pairs of synthetic 256x144", "4 pairs of demo_out/601_3.avi",
+    assert set(launches) == {"epe", "drawgrids", "celltree", "vectordistance"}
+    for tag in ("4 pairs of synthetic 256x144", "4 pairs of demo_out/601_3.avi",
                 "1400 cell PNGs; rgb_values rows equal to the CPU run's at --max-frames 3 (2 rows)",
                 "kmeangrids cell-tree path (LFS stub --path) --device cuda: OutCSV/clip.csv: 4 frames x 350 cells",
                 "hue table bitwise equal to grid_cluster_stage's",
@@ -635,21 +602,18 @@ def test_chip_smoke_surface_phases_rehearsal(monkeypatch, capsys):
         assert tag in out, tag
 
 
-def test_chip_smoke_native_phase_without_the_codec_headers(monkeypatch, capsys, tmp_path):
-    """On a host whose g++ lacks jpeglib.h, chip_smoke.native_decode_phase
-    reports the decoder unavailable with the compiler's words and runs
-    nothing native; where the headers are there, a failed build fails it."""
-    import chip_smoke
-    from opticalflowclustering_tpu_torch.io import fastio
 
-    monkeypatch.setattr(fastio, "_lib", None)
-    monkeypatch.setattr(fastio, "_error", "g++ exited 1:\nfatal error: jpeglib.h: No such file or directory")
-    monkeypatch.setattr(chip_smoke, "codec_headers", lambda: (False, "fatal error: jpeglib.h: No such file"))
-    frames = np.zeros((3, 16, 16, 3), np.uint8)
-    assert chip_smoke.native_decode_phase(torch.device("cpu"), "[cpu]", frames, None, str(tmp_path / "x.avi")) == {}
-    out = capsys.readouterr().out
-    assert "codec headers missing" in out and "jpeglib.h: No such file or directory" in out
-    assert "native decoder unavailable on this host" in out
-    monkeypatch.setattr(chip_smoke, "codec_headers", lambda: (True, "found"))
-    with pytest.raises(AssertionError, match="did not build"):
-        chip_smoke.native_decode_phase(torch.device("cpu"), "[cpu]", frames, None, str(tmp_path / "x.avi"))
+
+def test_chip_smoke_surface_phases_fail_on_a_wrong_epe_launch_count(monkeypatch):
+    """chip_smoke.surface_phases holds the EPE phase's launches against the
+    design's count and stops there: with the design off by one, the phase
+    fails before drawgrids runs."""
+    from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
+
+    chip_smoke, _, _ = _rehearse_on_cpu(monkeypatch)
+    runs = chip_smoke.kernel_runs
+    monkeypatch.setattr(chip_smoke, "kernel_runs", lambda *a: runs(*a) + 1)
+    monkeypatch.setattr(chip_smoke, "drawgrids_phase", lambda *a: pytest.fail("ran past the EPE check"))
+    series = np.zeros(8, np.float32)
+    with pytest.raises(AssertionError, match="epe: expected"):
+        chip_smoke.surface_phases(torch.device("cpu"), "[cpu]", synth_frames(5, 144, 256), series, series)
