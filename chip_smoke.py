@@ -15,7 +15,11 @@ unsharded pipeline) and the findcosine CLI; then flow EPE against
 cv2.calcOpticalFlowFarneback in every warp mode, the drawgrids CLI
 (against itself on the CPU), the kmeangrids cell-tree path over drawgrids'
 16,800 cell PNGs (equal to grid_cluster_stage) and the vectordistance CLI;
-then the clustering and model
+kmeangrids with its default flags (YOLO/contour overlays drawn on the card,
+its table equal to grid_cluster_stage over overlays drawn on the host, its
+launches counted) and the ops/ modules (Canny, morphology, histograms,
+warps, SSIM, Hough, SLIC) against the CPU with the detectcircles and
+superpixels CLIs; then the clustering and model
 paths at 1280x720, each against the same function on the CPU: kmeans_batched
 over the 16,800 cells of the rendered flow frames, quantize_colors, the
 colorkmeans CLI, FlowCellNet serving (detect_windows on every frame, the
@@ -68,6 +72,7 @@ DEMO_FRAMES = None  # frames of demo_out/601_3.avi the cv2 stream check reads (N
 # take ~20 s, so the check reads the card's first 2 rows.
 DRAWGRIDS_CPU_FRAMES = 3
 REALTIME_FRAMES = 75  # --max-frames of the realtime CLI on demo_out/601_3.avi
+OPS_CMP_HW = (360, 640)  # Hough and SLIC card vs CPU at this size (the CPU side is slow at 720p)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -541,6 +546,7 @@ def celltree_phase(dev, stamp: str, clip: str, tree: str, tmp: str) -> None:
     row per cell."""
     from opticalflowclustering_tpu_torch.cli import kmeangrids
     from opticalflowclustering_tpu_torch.features.grid import GridParams
+    from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams
     from opticalflowclustering_tpu_torch.io import video as io_video
     from opticalflowclustering_tpu_torch.pipeline.bounce import PipelineConfig, grid_cluster_stage, process_frames
 
@@ -624,6 +630,279 @@ def surface_phases(dev, stamp: str, frames: np.ndarray, series: np.ndarray, rgb_
         counted("vectordistance", lambda: vectordistance_phase(series, rgb_series, tmp))
     for name in ("drawgrids", "celltree", "vectordistance"):
         check(launches[name] == {"warp_m": 0, "box_solve": 0}, f"{name} launched {launches[name]}")
+    return launches
+
+
+def circles_image(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """[h, w] uint8: 8 filled discs (radius 60-110 px at 720p, scaled with
+    h) on a flat ground, Gaussian-blurred 9×9 as a camera softens them; at
+    1280x720 cv2.HoughCircles finds 7 of them at the demo's defaults."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    img = np.full((h, w), 40, np.uint8)
+    s = h / 720
+    for i in range(8):
+        r = int(rng.integers(60, 110) * s)
+        cv2.circle(img, (int((160 + 320 * (i % 4)) * s), int((180 + 360 * (i // 4)) * s)), r,
+                   int(rng.integers(150, 250)), -1)
+    return cv2.GaussianBlur(img, (9, 9), 0)
+
+
+def overlay_inputs(root: str, video: str, n_frames: int, h: int, w: int, seed: int = 0) -> tuple[int, int]:
+    """Writes `root`/yolo_labels.txt with 1-2 boxes (some cut by the frame
+    edge) on every third frame from 3, and `root`/Contours/<video>/<video>_<n>.txt
+    with 1-2 star polygons of 50-300 vertices on every third frame from 4.
+    Returns (boxes, polygons)."""
+    rng = np.random.default_rng(seed)
+    rows, n_polys = [], 0
+    cdir = os.path.join(root, "Contours", video)
+    os.makedirs(cdir)
+    for f in range(2, n_frames + 1):
+        if f % 3 == 0:
+            for _ in range(rng.integers(1, 3)):
+                rows.append([f, 0, 0, rng.integers(-20, w), rng.integers(-20, h), rng.integers(20, w // 3),
+                             rng.integers(20, h // 3), 0, 0, 0, 0])
+        elif f % 3 == 1:
+            lines = []
+            for k in range(rng.integers(1, 3)):
+                n = int(rng.integers(50, 301))
+                a = np.sort(rng.uniform(0, 2 * np.pi, n))
+                r = rng.uniform(0.02, 0.2, n) * min(h, w)
+                cx, cy = rng.integers(0, w), rng.integers(0, h)
+                pts = np.stack([cx + r * np.cos(a), cy + r * np.sin(a)], -1).round().astype(np.int64)
+                lines.append(" ".join(map(str, [k, *pts.ravel()])))
+            n_polys += len(lines)
+            with open(os.path.join(cdir, f"{video}_{f}.txt"), "w") as fh:
+                fh.write("\n".join(lines) + "\n")
+    np.savetxt(os.path.join(root, "yolo_labels.txt"), np.array(rows, np.float64))
+    return len(rows), n_polys
+
+
+def draw_overlays_on_host(flow_bgr: np.ndarray, root: str, video: str) -> np.ndarray:
+    """A copy of rendered frames [n, H, W, 3] (pair i is frame i + 2) with the
+    overlays of `root` drawn by io.overlays on numpy arrays."""
+    from opticalflowclustering_tpu_torch.io import overlays as ov
+
+    out = flow_bgr.copy()
+    boxes = ov.load_yolo_boxes(os.path.join(root, "yolo_labels.txt"))
+    for i in range(out.shape[0]):
+        for x, y, w, h in ov.yolo_rects_for_frame(boxes, i + 2):
+            ov.draw_rect_outline(out[i], x, y, w, h)
+        ov.apply_contour_mask(out[i], ov.load_contour_polys(os.path.join(root, "Contours"), video, i + 2))
+    return out
+
+
+def overlay_phase(dev, stamp: str, frames: np.ndarray, tmp: str) -> dict:
+    """Phase 5r: the kmeangrids CLI called as its users call it, with its
+    default flags (overlays on, `fast`, --device cuda), over `frames` written
+    as an MJPG AVI and the yolo_labels.txt and Contours/ of
+    `overlay_inputs`, with its kernel launches counted and held against the
+    design. Its hue table equals grid_cluster_stage's over process_frames'
+    `fast` render with the overlays drawn on the host (io.overlays on
+    numpy) bitwise; pairs/s of the overlay path (process_frames with an
+    OverlaySpec) beside feature-only process_frames, in turns; the overlay
+    path's rendered frames (all of them, the clip's first 3 frames
+    included) equal the host drawing byte for byte. Returns the CLI's
+    launches."""
+    from opticalflowclustering_tpu_torch.cli import kmeangrids
+    from opticalflowclustering_tpu_torch.features.grid import GridParams
+    from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams
+    from opticalflowclustering_tpu_torch.io import video as io_video
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.pipeline.bounce import (
+        OverlaySpec,
+        PipelineConfig,
+        grid_cluster_stage,
+        process_frames,
+    )
+
+    d = os.path.join(tmp, "overlay")
+    os.makedirs(d)
+    clip = os.path.join(d, "clip.avi")
+    io_video.write_video_mjpg(clip, frames, 30.0)
+    decoded = io_video.read_video_bgr(clip)
+    n, h, w = decoded.shape[:3]
+    n_boxes, n_polys = overlay_inputs(d, "clip.avi", n, h, w)
+    kw.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.chdir(d):
+        lines, _ = run_cli(kmeangrids.main, ["-d", "OutImgs/clip", "-c", "1", "-f", "addnew.csv", "--path", clip,
+                                             "--device", "cuda"])
+    sync(dev)
+    t_cli = time.perf_counter() - t0
+    launches = dict(kw.LAUNCHES)
+    cfg = PipelineConfig(flow=FarnebackParams(warp_mode="fast"))  # the CLI's default mode
+    runs = kernel_runs(n - 1, cfg.chunk, h, w, cfg.flow)
+    check(launches == {"warp_m": runs, "box_solve": runs},
+          f"overlay: expected {runs} launches of each kernel, got {launches}")
+    got = np.loadtxt(os.path.join(d, "OutCSV", "clip.csv"), delimiter=",", skiprows=1, dtype=np.int64, ndmin=2)
+    plain = process_frames(decoded, cfg, dev)
+    drawn = draw_overlays_on_host(plain["flow_bgr"], d, "clip.avi")
+    want = grid_cluster_stage(drawn, GridParams(), True, dev)[1].cpu().numpy()
+    check(got.shape == want.shape and np.array_equal(got, want),
+          f"overlay: CLI table {got.shape} vs grid_cluster_stage over host-drawn overlays {want.shape}: "
+          f"{int((got != want).sum()) if got.shape == want.shape else 'shapes differ'} cells differ")
+    changed = int((plain["hue_table"] != want).sum())
+
+    # The CLI and the plain run warmed both paths up; the overlay path's
+    # first timed run also gives its frames for the byte check.
+    spec = OverlaySpec("yolo_labels.txt", "Contours", "clip.avi")
+    feature = dataclasses.replace(cfg, emit_flow_bgr=False)
+    outs = {}
+    runners = {"overlay path (flow_bgr returned)":
+               lambda: outs.update(process_frames(decoded, cfg, dev, overlays=spec)),
+               "feature-only process_frames": lambda: process_frames(decoded, feature, dev)}
+    times = {k: [] for k in runners}
+    with contextlib.chdir(d):
+        for _ in range(REPEATS):
+            for name, fn in runners.items():
+                times[name].append(timed_s(dev, fn))
+    diff = int((outs["flow_bgr"] != drawn).any(-1).sum())
+    check(diff == 0 and np.array_equal(outs["hue_table"], want),
+          f"overlay: the overlay path's frames differ from the host drawing in {diff} pixels, or its table does")
+    print(f"overlay: kmeangrids with its default flags (overlays on) --device cuda on {n} frames {w}x{h} with "
+          f"{n_boxes} boxes and {n_polys} polygons: {lines[-1]}; launches {launches} (design {runs}); table "
+          f"bitwise equal to grid_cluster_stage over the host-drawn overlays ({changed} cells differ from "
+          f"the table without overlays); the overlay path's {n - 1} frames byte-equal to the host drawing; "
+          f"{t_cli:.2f} s with decode and CSVs {stamp}")
+    for name, ts in times.items():
+        print(f"time {name} {n}x{h}x{w} warp_mode=fast: {(n - 1) / float(np.median(ts)):.2f} pairs/s (median of "
+              f"{REPEATS}, in turns, runs {', '.join(f'{t:.3f}' for t in ts)} s) {stamp}")
+    return launches
+
+
+def ops_phase(dev, stamp: str, frames: np.ndarray, tmp: str) -> None:
+    """Phase 5s: the ops/ modules on the card at the clip's size, on its
+    middle frame and on `circles_image`, each against the same function on
+    the CPU: canny (L1, L2) bitwise, and its agreement with cv2.Canny;
+    morphology, histogram counts and warp_perspective bitwise; SSIM and MSE
+    within rtol 1e-5; Hough (both modes: the same circles, within 1e-3 px)
+    and SLIC (share of equal labels ≥ 0.999) compared at OPS_CMP_HW, where
+    the CPU is quick, and timed at the full size; the detectcircles and
+    superpixels CLIs once each on the card. Prints each op's card time."""
+    import cv2
+    import torch
+
+    from opticalflowclustering_tpu_torch.cli import detectcircles, superpixels
+    from opticalflowclustering_tpu_torch.ops import edges, histogram, hough, morphology, slic, ssim, warp
+    from opticalflowclustering_tpu_torch.utils import profiling
+
+    h, w = frames.shape[1:3]
+    bgr = frames[len(frames) // 2]
+    gray = cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY)
+    gray2 = cv2.cvtColor(frames[len(frames) // 2 + 1], cv2.COLOR_BGR2GRAY)
+    circ = circles_image(h, w)
+    on = {name: torch.from_numpy(a) for name, a in (("gray", gray), ("gray2", gray2), ("circ", circ), ("bgr", bgr))}
+    card = {k: v.to(dev) for k, v in on.items()}
+    ms = {}
+
+    def both(name, fn, keys, equal):
+        """fn on the card and on the CPU; `equal(card, cpu)` must hold; the
+        card's time into ms[name]."""
+        a = fn(*(card[k] for k in keys))
+        b = fn(*(on[k] for k in keys))
+        ok = equal(a, b)
+        check(ok is True, f"{name}: card vs CPU {ok}")
+        ms[name] = profiling.event_ms(lambda: fn(*(card[k] for k in keys)), 5)
+        return a
+
+    def same(a, b):
+        a = a.cpu() if isinstance(a, torch.Tensor) else a
+        return True if torch.equal(a, b) else f"not bitwise ({int((a != b).sum())} differ)"
+
+    agree = []
+    for img in ("gray", "circ"):
+        for l2 in (False, True):
+            e = both(f"canny {img} {'L2' if l2 else 'L1'}", lambda x, l2=l2: edges.canny(x, 50, 100, l2gradient=l2),
+                     [img], same).cpu().numpy()
+            ref = cv2.Canny(on[img].numpy(), 50, 100, L2gradient=l2)
+            agree.append(f"{img} {'L2' if l2 else 'L1'} {float((e == ref).mean()):.6f}")
+    k_rect, k_ell = morphology.structuring_element("rect", (21, 7)), morphology.structuring_element("ellipse", (9, 11))
+    both("morphology close rect 21x7", lambda x: morphology.morphology_ex(x, "close", k_rect), ["gray"], same)
+    both("dilate ellipse 9x11 x2", lambda x: morphology.dilate(x, k_ell, 2), ["gray"], same)
+    both("calc_hist 8x8x8", lambda x: histogram.calc_hist(x, [0, 1, 2], [8, 8, 8], [(0, 256)] * 3), ["bgr"], same)
+    m = warp.get_perspective_transform(np.float32([[0.08 * w, 0.1 * h], [0.92 * w, 0.05 * h], [0.95 * w, 0.97 * h],
+                                                   [0.04 * w, 0.9 * h]]),
+                                       np.float32([[0, 0], [w - 1, 0], [w - 1, h - 1], [0, h - 1]]))
+    both("warp_perspective", lambda x: warp.warp_perspective(x, m, (w, h)), ["bgr"], same)
+
+    def close(a, b):
+        a, b = float(a), float(b)
+        return True if abs(a - b) <= 1e-5 * abs(b) else f"{a} vs {b}"
+
+    s = both("ssim", ssim.ssim, ["gray", "gray2"], close)
+    both("mse", ssim.mse, ["gray", "gray2"], close)
+
+    # Hough and SLIC: card vs CPU at OPS_CMP_HW, card times at full size.
+    ch, cw = OPS_CMP_HW
+    small = {"circ": circles_image(ch, cw), "gray": cv2.resize(gray, (cw, ch), interpolation=cv2.INTER_AREA)}
+    found = []
+    for gate in (True, False):
+        mode = "coherent" if gate else "cv2-raw"
+        for name, img in small.items():
+            a = hough.hough_circles(torch.from_numpy(img).to(dev), coherence_gate=gate)
+            b = hough.hough_circles(torch.from_numpy(img), coherence_gate=gate)
+            check(a.shape == b.shape and np.allclose(a, b, atol=1e-3), f"hough {mode} {name} {cw}x{ch}: {a} vs {b}")
+            found.append(f"{mode} {name} {len(a)}")
+        full = hough.hough_circles(card["circ"], coherence_gate=gate)
+        found.append(f"{mode} circles {w}x{h} {len(full)}")
+        ms[f"hough_circles {mode} circles"] = profiling.event_ms(
+            lambda gate=gate: hough.hough_circles(card["circ"], coherence_gate=gate), 3)
+        ms[f"hough_circles {mode} frame"] = profiling.event_ms(
+            lambda gate=gate: hough.hough_circles(card["gray"], coherence_gate=gate), 3)
+    ref = cv2.HoughCircles(circ, cv2.HOUGH_GRADIENT, 1.2, 75)
+    sb = torch.from_numpy(cv2.resize(bgr, (cw, ch), interpolation=cv2.INTER_AREA))
+    labels = slic.slic(sb.to(dev)).cpu()
+    share = float((labels == slic.slic(sb)).double().mean())
+    check(share >= 0.999, f"slic {cw}x{ch}: card vs CPU labels equal on {share}")
+    ms["slic 100 segments"] = profiling.event_ms(lambda: slic.slic(card["bgr"]), 3)
+
+    d = os.path.join(tmp, "ops")
+    os.makedirs(d)
+    cv2.imwrite(os.path.join(d, "circles.png"), cv2.cvtColor(circ, cv2.COLOR_GRAY2BGR))
+    cv2.imwrite(os.path.join(d, "frame.png"), bgr)
+    cli = {}
+    with contextlib.chdir(d):
+        for name, main, argv in (("detectcircles", detectcircles.main, ["-i", "circles.png", "--device", "cuda"]),
+                                 ("superpixels", superpixels.main, ["-i", "frame.png", "--segments", "100",
+                                                                    "--device", "cuda"])):
+            t0 = time.perf_counter()
+            lines, _ = run_cli(main, argv)
+            sync(dev)
+            cli[name] = (lines, time.perf_counter() - t0)
+    check(cli["detectcircles"][0][-2].endswith("circle(s) [coherent]") and os.path.isfile(
+        os.path.join(d, "circles_circles.png")), f"detectcircles printed {cli['detectcircles'][0]}")
+    check(cli["superpixels"][0][0].startswith("superpixels_100.png: ") and os.path.isfile(
+        os.path.join(d, "superpixels_100.png")), f"superpixels printed {cli['superpixels'][0]}")
+    print(f"ops {w}x{h}: canny, morphology, calc_hist, warp_perspective bitwise equal card vs CPU; ssim {float(s):.6f} "
+          f"and mse within rtol 1e-5; canny agreement with cv2 {cv2.__version__}: {', '.join(agree)}; hough "
+          f"(circles found: {', '.join(found)}; cv2.HoughCircles {0 if ref is None else ref.shape[1]}) the same "
+          f"circles card vs CPU at {cw}x{ch}; slic labels equal card vs CPU at {cw}x{ch}: {share:.6f}")
+    for name, (lines, t) in cli.items():
+        print(f"{name} --device cuda: {' | '.join(lines)}; {t:.2f} s with PNG I/O {stamp}")
+    print(f"time ops on the card, {w}x{h}, least of the runs (CUDA events): "
+          f"{'; '.join(f'{k} {v:.3f} ms' for k, v in ms.items())} {stamp}")
+
+
+def overlay_ops_phases(dev, stamp: str, frames: np.ndarray) -> dict:
+    """Phases 5r-5s at the clip's size, each run with the kernel launch
+    counts set to 0 just before it and read just after: the overlay path of
+    kmeangrids (the design's launches, checked inside) and the ops/ modules
+    with their CLIs (no hand-written kernel). Returns the launches by path."""
+    import tempfile
+
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+
+    check(have_cv2(), "the overlay clip and the ops' CLIs need cv2, which is not importable")
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="ofc-smoke-") as tmp:
+        launches["overlay"] = overlay_phase(dev, stamp, frames, tmp)
+        kw.reset_launches()
+        ops_phase(dev, stamp, frames, tmp)
+        sync(dev)
+        launches["ops"] = dict(kw.LAUNCHES)
+    check(launches["ops"] == {"warp_m": 0, "box_solve": 0}, f"ops launched {launches['ops']}")
     return launches
 
 
@@ -1212,6 +1491,11 @@ def main() -> int:
     # with the launch counts set to 0 just before and read just after.
     path_launches.update(surface_phases(dev, stamp, frames, series.cpu().numpy(),
                                         outs["fast"]["rgb_hue_table"].mean(axis=1)))
+
+    # Phases 5r-5s: kmeangrids' overlay path and the ops/ modules at
+    # 1280x720, each run with the launch counts set to 0 just before and
+    # read just after.
+    path_launches.update(overlay_ops_phases(dev, stamp, frames))
 
     # Phases 5f-5l: the clustering and model paths at 1280x720, each run
     # with the launch counts set to 0 just before and read just after.

@@ -2,7 +2,7 @@
 `opticalflowclustering_tpu/cli/drawgrids.py`, mirroring
 `drawGridsAndOutputCSV[Change].py`):
 
-  --path video --noyolo --nocontour [--optical flow.mp4 | --use-rgb]
+  --path video [--noyolo --nocontour] [--optical flow.mp4 | --use-rgb]
   [--tenbyten] [--dump-cells] [--max-frames N] [--device cuda|cpu]
 
 Writes `<video>_rgb_values.csv` (per-frame grid-mean hues of the flow
@@ -12,8 +12,8 @@ lines and each cell's mean-BGR label), and with `--dump-cells` the
 OutImgs/<video>/<frame>/<cell>.png tree that `kmeangrids` clusters.
 `--tenbyten` takes the 10×10 grid of the non-Change variant
 (`drawGridsAndOutputCSV.py:168`). The flow is computed in 'exact' mode, the
-library default, as the JAX CLI does. YOLO/contour overlays are not ported
-yet: the CLI exits with a message unless --noyolo --nocontour are given.
+library default, as the JAX CLI does. --noyolo and --nocontour are
+accepted and, as in the JAX CLI, change nothing: this CLI draws no overlays.
 """
 
 from __future__ import annotations
@@ -77,13 +77,6 @@ def main(argv=None):
         "no CUDA device rather than running on the CPU)",
     )
     args = ap.parse_args(argv)
-    # argparse store_false: the flags default True, and passing --noyolo /
-    # --nocontour turns the overlays off.
-    if args.noyolo or args.nocontour:
-        raise SystemExit(
-            "YOLO/contour overlays are not ported to the PyTorch package yet; "
-            "pass --noyolo --nocontour"
-        )
 
     import cv2
     import torch

@@ -13,8 +13,14 @@ process_video_stream`; the same tables). When `--path` is no file, or is a
 Git-LFS pointer stub (as every .mp4 of the reference tree is), it clusters
 the OutImgs cell tree at `-d` instead (the reference's phase-2-only run:
 `io.images.read_cell_tree` → `preprocess_cells_rgba` → `dominant_hue_k1`),
-as the JAX CLI does. YOLO/contour overlays of the video path are not ported
-yet and exit with a message saying so.
+as the JAX CLI does.
+
+The overlay flags are argparse `store_false`, as the reference's: without
+--noyolo the YOLO boxes of `yolo_labels.txt` (in the working directory),
+and without --nocontour the polygons under `Contours/<video file name>/`,
+are drawn onto each rendered flow frame on the device before the grid stage
+(`pipeline.bounce.process_frames(..., overlays=OverlaySpec(...))`). The
+stream is feature-only and refuses overlays.
 """
 
 from __future__ import annotations
@@ -85,27 +91,36 @@ def main(argv=None):
         use_video = False
 
     if use_video:
-        # argparse store_false: the flags default True, and passing --noyolo /
-        # --nocontour turns the overlays off (`KmeanGrids.py:255-257,353-354`).
-        if args["noyolo"] or args["nocontour"]:
-            raise SystemExit(
-                "YOLO/contour overlays are not ported to the PyTorch package yet; "
-                "pass --noyolo --nocontour"
-            )
         from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams
+        from opticalflowclustering_tpu_torch.io.video import read_video_bgr
         from opticalflowclustering_tpu_torch.pipeline.bounce import (
+            OverlaySpec,
             PipelineConfig,
-            process_video_file,
+            process_frames,
             process_video_stream,
         )
 
+        # argparse store_false: the flags default True, and passing --noyolo /
+        # --nocontour turns the overlays off (`KmeanGrids.py:255-257,353-354`).
+        overlays = None
+        if args["noyolo"] or args["nocontour"]:
+            overlays = OverlaySpec(
+                yolo_file="yolo_labels.txt" if args["noyolo"] else None,
+                contour_dir="Contours" if args["nocontour"] else None,
+                video_name=os.path.basename(args["path"]),
+            )
         cfg = PipelineConfig(
             rb_swap=rb_swap,
             emit_flow_bgr=False,
             flow=FarnebackParams(warp_mode=args["warp_mode"]),
         )
-        run = process_video_stream if args["stream"] else process_video_file
-        out = run(args["path"], cfg, args["max_frames"], args["device"])
+        if args["stream"]:
+            if overlays is not None:
+                raise SystemExit("--stream is feature-only; pass --noyolo --nocontour")
+            out = process_video_stream(args["path"], cfg, args["max_frames"], args["device"])
+        else:
+            frames = read_video_bgr(args["path"], args["max_frames"])
+            out = process_frames(frames, cfg, args["device"], overlays=overlays)
         hue_table, centroids = out["hue_table"], out["centroids"]
     else:
         import torch

@@ -12,7 +12,9 @@ Frame pairs are independent, so a video goes through in chunks of
 for) come back to the host. `process_video_stream` also overlaps the host
 with the card: a thread decodes the next chunk while the card computes the
 current one, and chunk k's tables are copied back only after chunk k+1 has
-been enqueued.
+been enqueued. With `overlays` (YOLO boxes, contour masks), `process_frames`
+draws them onto each rendered frame on the device, between the render and
+the grid stage.
 """
 
 from __future__ import annotations
@@ -33,6 +35,13 @@ from opticalflowclustering_tpu_torch.features.grid import GridParams, grid_mean_
 from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams, farneback_flow
 from opticalflowclustering_tpu_torch.flow.render import render_flow_hsv_bgr
 from opticalflowclustering_tpu_torch.io import video as io_video
+from opticalflowclustering_tpu_torch.io.overlays import (
+    apply_contour_mask,
+    draw_rect_outline,
+    load_contour_polys,
+    load_yolo_boxes,
+    yolo_rects_for_frame,
+)
 from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
 from opticalflowclustering_tpu_torch.ops.polar import magnitude
 from opticalflowclustering_tpu_torch.runtime import resolve_device
@@ -52,6 +61,26 @@ class PipelineConfig:
     emit_flow_bgr: bool = True
 
 
+@dataclasses.dataclass(frozen=True)
+class OverlaySpec:
+    """YOLO-box / contour overlays (`KmeanGrids.py:201-211`): the label table
+    `yolo_file`, and `contour_dir`/<video_name>/<video_name>_<frame>.txt
+    polygons, drawn onto each rendered flow frame before grid pooling. The
+    documented runs disable both (--noyolo --nocontour)."""
+
+    yolo_file: str | None = None
+    contour_dir: str | None = None
+    video_name: str = ""
+
+
+def _render(frames: torch.Tensor, cfg: PipelineConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """[C+1, H, W, 3] uint8 BGR frames on the device → (mean |flow| [C],
+    flow render [C, H, W, 3] uint8) of their C pairs."""
+    gray = bgr2gray(frames)
+    flow = farneback_flow(gray[:-1], gray[1:], cfg.flow)
+    return magnitude(flow[..., 0], flow[..., 1]).mean(dim=(-2, -1)), render_flow_hsv_bgr(flow)
+
+
 @torch.inference_mode()
 def chunk_step(
     frames_chunk, cfg: PipelineConfig, device: str | torch.device = "cuda"
@@ -59,11 +88,7 @@ def chunk_step(
     """One chunk of C+1 BGR frames [C+1, H, W, 3] uint8 → features of its C
     pairs, computed on `device`; returns tensors on that device."""
     dev = resolve_device(device)
-    frames = torch.as_tensor(frames_chunk).to(dev)
-    gray = bgr2gray(frames)
-    flow = farneback_flow(gray[:-1], gray[1:], cfg.flow)
-    mean_mag = magnitude(flow[..., 0], flow[..., 1]).mean(dim=(-2, -1))
-    flow_bgr = render_flow_hsv_bgr(flow)
+    mean_mag, flow_bgr = _render(torch.as_tensor(frames_chunk).to(dev), cfg)
     centroids, hue = dominant_hue_k1_frames(flow_bgr, cfg.grid, rb_swap=cfg.rb_swap)
     out = {
         "hue_table": hue,
@@ -109,22 +134,55 @@ def process_frames(
     frames_bgr: np.ndarray,
     cfg: PipelineConfig = PipelineConfig(),
     device: str | torch.device = "cuda",
+    overlays: OverlaySpec | None = None,
 ) -> dict[str, np.ndarray]:
     """Full pipeline over decoded [N,H,W,3] uint8 BGR frames on `device`.
 
     Returns per-pair numpy arrays (N-1 rows): hue_table uint8,
     rgb_hue_table float32, centroids int32, mean_magnitude float32, and
-    flow_bgr uint8 when cfg.emit_flow_bgr."""
+    flow_bgr uint8 when cfg.emit_flow_bgr or `overlays` is given. With
+    `overlays`, the YOLO boxes and contour masks of frame `start + 2 + i`
+    (the reference counts the first decoded frame as 1 and pairs from frame
+    2, `KmeanGrids.py:169,189`) are drawn onto pair i's rendered frame on
+    the device, before the grid stage, as `KmeanGrids.py:201-231` orders
+    them; the padded tail pairs of the last chunk get none."""
     frames_bgr = np.asarray(frames_bgr)
     if frames_bgr.shape[0] < 2:
         raise ValueError("need at least 2 frames")
     dev = resolve_device(device)
     chunks, n_pairs = _stack_chunks(frames_bgr, cfg.chunk)
+    yolo = load_yolo_boxes(overlays.yolo_file) if overlays is not None and overlays.yolo_file else None
     outs = []
-    for chunk in chunks:
-        out = chunk_step(torch.from_numpy(chunk), cfg, dev)
+    for j, chunk in enumerate(chunks):
+        if overlays is None:
+            out = chunk_step(torch.from_numpy(chunk), cfg, dev)
+        else:
+            start = j * cfg.chunk
+            out = _overlay_step(torch.from_numpy(chunk), cfg, dev, overlays, yolo, start,
+                                min(cfg.chunk, n_pairs - start))
         outs.append({k: v.cpu().numpy() for k, v in out.items()})
     return {k: np.concatenate([o[k] for o in outs])[:n_pairs] for k in outs[0]}
+
+
+@torch.inference_mode()
+def _overlay_step(
+    frames: torch.Tensor, cfg: PipelineConfig, dev: torch.device, spec: OverlaySpec,
+    yolo: np.ndarray | None, start: int, n_real: int,
+) -> dict[str, torch.Tensor]:
+    """chunk_step with the overlays drawn onto the first `n_real` rendered
+    frames in place on the device, then the grid stage over those frames."""
+    mean_mag, flow_bgr = _render(frames.to(dev), cfg)
+    flow_bgr = flow_bgr[:n_real]
+    for i in range(n_real):
+        frame_num = start + 2 + i
+        if yolo is not None:
+            for x, y, w, h in yolo_rects_for_frame(yolo, frame_num):
+                draw_rect_outline(flow_bgr[i], x, y, w, h)
+        if spec.contour_dir:
+            apply_contour_mask(flow_bgr[i], load_contour_polys(spec.contour_dir, spec.video_name, frame_num))
+    centroids, hue, rgb_hue = grid_cluster_stage(flow_bgr, cfg.grid, cfg.rb_swap, dev)
+    return {"hue_table": hue, "rgb_hue_table": rgb_hue, "centroids": centroids,
+            "mean_magnitude": mean_mag[:n_real], "flow_bgr": flow_bgr}
 
 
 def process_video_file(

@@ -95,13 +95,30 @@ def test_drawgrids_cli_writes_what_jax_writes(tmp_path, monkeypatch, capsys, mod
 
 
 def test_drawgrids_cli_refuses_overlays_and_cuda_without_cuda(tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="overlays"):
-        tdg.main(["--path", DEMO, "--noyolo", "--device", "cpu"])
+    """The port's drawgrids without --noyolo --nocontour (as the JAX CLI is
+    called by default) writes the `_rgb_values.csv` bytes the JAX CLI
+    writes, the flags changing nothing on either side; asked for cuda where
+    there is none, it raises before writing anything."""
+    csv = {}
+    for side, main, module, flags in (("jax", jdg.main, jvideo, []), ("port", tdg.main, tvideo, ["--device", "cpu"]),
+                                      ("port-flags", tdg.main, tvideo, ["--noyolo", "--nocontour", "--device", "cpu"])):
+        d = tmp_path / side
+        d.mkdir()
+        path = shutil.copy(DEMO, d / "601_3.avi")
+        monkeypatch.chdir(d)
+        monkeypatch.setattr(module, "write_video_mjpg", lambda *a: None)
+        main(["--path", str(path), "--max-frames", "4"] + flags)
+        csv[side] = (d / "601_3.avi_rgb_values.csv").read_bytes()
+    assert csv["port"] == csv["jax"] == csv["port-flags"] and csv["jax"].count(b"\n") == 4
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    monkeypatch.chdir(empty)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
+        tdg.main(["--path", DEMO, "--max-frames", "2"])
+    with pytest.raises(RuntimeError, match="cuda"):
         tdg.main(["--path", DEMO, "--noyolo", "--nocontour", "--max-frames", "2"])
-    assert os.listdir(tmp_path) == []
+    assert os.listdir(empty) == []
 
 
 @pytest.fixture(scope="module")

@@ -151,7 +151,9 @@ def test_port_sources_import_nothing_of_jax(tmp_path):
                 "models/flow_cnn.py", "models/cnn.py", "models/bounce_classifier.py", "models/layers.py",
                 "cli/classify.py", "cli/detect.py", "cli/realtime.py", "cli/trainbounce.py",
                 "parallel/train.py", "convert.py", "cli/drawgrids.py",
-                "cli/vectordistance.py"):
+                "cli/vectordistance.py", "ops/morphology.py", "extras/contours.py", "io/overlays.py",
+                "ops/threshold.py", "ops/edges.py", "ops/hough.py", "cli/detectcircles.py", "ops/ssim.py",
+                "ops/slic.py", "cli/superpixels.py", "ops/histogram.py", "ops/moments.py", "ops/warp.py"):
         assert os.path.join(port, rel) in sources, rel
     bad = {os.path.relpath(p, REPO): f for p in sources if (f := _foreign_imports(p))}
     assert bad == {}
@@ -617,3 +619,37 @@ def test_chip_smoke_surface_phases_fail_on_a_wrong_epe_launch_count(monkeypatch)
     series = np.zeros(8, np.float32)
     with pytest.raises(AssertionError, match="epe: expected"):
         chip_smoke.surface_phases(torch.device("cpu"), "[cpu]", synth_frames(5, 144, 256), series, series)
+
+
+def test_chip_smoke_overlay_and_ops_phases_rehearsal(monkeypatch, capsys):
+    """chip_smoke.overlay_ops_phases on the CPU: "cuda" resolves to the CPU
+    in the pipeline and in every CLI, the kernel entries are counted plain
+    versions, the card timer is a host clock, one timing repeat, a 5-frame
+    288×512 clip and Hough/SLIC compared at 144×256. kmeangrids with its
+    default flags draws the written boxes and polygons and launches the
+    design's 4 levels × 3 iterations of each kernel; its table equals
+    grid_cluster_stage over the host-drawn overlays; the ops agree across
+    "devices" and their CLIs run; the ops launch no kernel."""
+    from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
+    from opticalflowclustering_tpu_torch.utils import profiling
+
+    def host_ms(fn, repeats=10, warmup=1):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    chip_smoke, _, _ = _rehearse_on_cpu(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "OPS_CMP_HW", (144, 256))
+    monkeypatch.setattr(profiling, "event_ms", host_ms)
+    launches = chip_smoke.overlay_ops_phases(torch.device("cpu"), "[cpu rehearsal]", synth_frames(5, 288, 512))
+    assert launches == {"overlay": {"warp_m": 12, "box_solve": 12}, "ops": {"warp_m": 0, "box_solve": 0}}
+    out = capsys.readouterr().out
+    for tag in ("overlay: kmeangrids with its default flags (overlays on) --device cuda on 5 frames 512x288 with 2 "
+                "boxes and ", "OutCSV/clip.csv: 4 frames x 350 cells", "table bitwise equal to grid_cluster_stage",
+                "byte-equal to the host drawing", "time overlay path (flow_bgr returned) 5x288x512",
+                "time feature-only process_frames 5x288x512",
+                "ops 512x288: canny, morphology, calc_hist, warp_perspective bitwise equal card vs CPU",
+                "the same circles card vs CPU at 256x144", "slic labels equal card vs CPU at 256x144: 1.000000",
+                "detectcircles --device cuda: ", "superpixels --device cuda: superpixels_100.png: ",
+                "time ops on the card, 512x288", "hough_circles cv2-raw circles"):
+        assert tag in out, tag

@@ -108,12 +108,31 @@ def test_kmeangrids_cli_on_demo_clip(tmp_path, monkeypatch):
 
 
 def test_kmeangrids_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
+    """The overlay call runs: with --nocontour only (YOLO boxes on), the
+    port's CLI writes the OutCSV and -f bytes the JAX CLI writes over the
+    same yolo_labels.txt; without that file both raise FileNotFoundError.
+    The stream is feature-only and still refuses overlays, as in JAX. Where
+    --path is no file the cell tree at -d is clustered; asked for cuda where
+    there is none, every path raises before writing anything."""
+    from opticalflowclustering_tpu.cli import kmeangrids as jcli
+
     base = ["-d", "OutImgs/v", "-c", "1", "-f", "a.csv", "--path", DEMO]
-    with pytest.raises(SystemExit, match="overlays"):
-        tcli.main(base + ["--nocontour"])
-    with pytest.raises(SystemExit, match="overlays"):  # --stream is feature-only
-        tcli.main(base + ["--noyolo", "--stream"])
+    rows = np.zeros((2, 11))
+    rows[:, 0], rows[0, 3:7], rows[1, 3:7] = (2, 3), (20, 30, 60, 40), (-3, 100, 50, 200)
+    written = {}
+    for side, main, extra in (("jax", jcli.main, []), ("port", tcli.main, ["--device", "cpu"])):
+        d = tmp_path / side
+        d.mkdir()
+        monkeypatch.chdir(d)
+        with pytest.raises(FileNotFoundError, match="yolo_labels.txt"):
+            main(base + ["--nocontour", "--max-frames", "4"] + extra)
+        np.savetxt(d / "yolo_labels.txt", rows)
+        main(base + ["--nocontour", "--max-frames", "4"] + extra)
+        written[side] = ((d / "OutCSV" / "v.csv").read_bytes(), (d / "a.csv").read_bytes())
+        with pytest.raises(SystemExit, match="--stream is feature-only"):
+            main(base + ["--noyolo", "--stream"] + extra)
+    assert written["port"] == written["jax"] and written["port"][0].count(b"\n") == 4
+    monkeypatch.chdir(tmp_path)
     # Where --path is no file, the cell tree at -d is clustered instead.
     tree = _write_cell_tree(tmp_path / "OutImgs" / "v")
     tcli.main(["-d", str(tree), "-c", "1", "-f", "a.csv", "--path", "missing.mp4", "--noyolo", "--nocontour",
@@ -124,6 +143,8 @@ def test_kmeangrids_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         tcli.main(base + ["--noyolo", "--nocontour", "--max-frames", "3"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        tcli.main(base + ["--max-frames", "3"])
     with pytest.raises(RuntimeError, match="cuda"):
         tcli.main(base + ["--noyolo", "--nocontour", "--stream"])
     with pytest.raises(RuntimeError, match="cuda"):  # the cell-tree path too
