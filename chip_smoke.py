@@ -19,7 +19,12 @@ kmeangrids with its default flags (YOLO/contour overlays drawn on the card,
 its table equal to grid_cluster_stage over overlays drawn on the host, its
 launches counted) and the ops/ modules (Canny, morphology, histograms,
 warps, SSIM, Hough, SLIC) against the CPU with the detectcircles and
-superpixels CLIs; then the clustering and model
+superpixels CLIs; the row-sharded (spatial) Farneback flow on a tp=2 and a
+tp=4 mesh of the card with box_solve on every block (its tables equal to the
+unsharded pipeline's, its launches counted), the dryrun entry's six passes
+and its forward step, and the extras (scan and searchengine CLIs,
+color_transfer, skin_mask, locate_barcode, brightest_spot, find_screen with
+a Zernike descriptor) against the CPU; then the clustering and model
 paths at 1280x720, each against the same function on the CPU: kmeans_batched
 over the 16,800 cells of the rendered flow frames, quantize_colors, the
 colorkmeans CLI, FlowCellNet serving (detect_windows on every frame, the
@@ -72,6 +77,7 @@ DEMO_FRAMES = None  # frames of demo_out/601_3.avi the cv2 stream check reads (N
 # take ~20 s, so the check reads the card's first 2 rows.
 DRAWGRIDS_CPU_FRAMES = 3
 REALTIME_FRAMES = 75  # --max-frames of the realtime CLI on demo_out/601_3.avi
+SPATIAL_PAIRS = 4  # pairs of the clip the row-sharded flow runs on
 OPS_CMP_HW = (360, 640)  # Hough and SLIC card vs CPU at this size (the CPU side is slow at 720p)
 
 
@@ -906,6 +912,321 @@ def overlay_ops_phases(dev, stamp: str, frames: np.ndarray) -> dict:
     return launches
 
 
+def spatial_runs(h: int, w: int, tp: int, params) -> int:
+    """box_solve launches of one row-sharded flow: one per block, pyramid
+    level and iteration (the batch goes in one launch)."""
+    from opticalflowclustering_tpu_torch.flow.farneback import pyramid_plan
+
+    return tp * len(pyramid_plan(h, w, params)) * params.iterations
+
+
+def spatial_phase(dev, stamp: str, frames: np.ndarray) -> dict:
+    """Phase 5t: the row-sharded (spatial) flow at the clip's size on the
+    reference's Farneback call (FarnebackParams(): 3 levels, winsize 15, 3
+    iterations), over SPATIAL_PAIRS pairs of `frames`: box_solve bitwise
+    equal to its plain version at the shapes of the blocks' M regions;
+    spatial_hue_pipeline on a tp=2 mesh naming `dev` twice, its tables
+    bitwise the unsharded exact pipeline's (farneback_flow →
+    render_flow_hsv_bgr → grid) and its mean_mag within rtol 1e-6;
+    spatial_farneback_flow on tp=2 within 5e-5 px of the unsharded flow
+    (max |Δ| printed), and spatial_farneback_flow_padded on tp=4 (rows padded
+    to the next multiple of 4·2^3) against the unsharded flow of the padded
+    frames, cropped; each run's launches the design's (box_solve: blocks ×
+    levels × iterations; warp_m none). Times ms per pair of each beside the
+    unsharded exact flow: on one card the blocks run in turn, so this is a
+    check, not a speed-up. Returns the launches by path."""
+    import torch
+
+    from opticalflowclustering_tpu_torch.features.dominant_color import dominant_hue_k1_frames
+    from opticalflowclustering_tpu_torch.features.grid import GridParams, grid_mean_hue
+    from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams, farneback_flow, pyramid_plan
+    from opticalflowclustering_tpu_torch.flow.render import render_flow_hsv_bgr
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
+    from opticalflowclustering_tpu_torch.ops.polar import magnitude
+    from opticalflowclustering_tpu_torch.parallel.mesh import make_mesh
+    from opticalflowclustering_tpu_torch.parallel.spatial import (
+        spatial_farneback_flow,
+        spatial_farneback_flow_padded,
+        spatial_hue_pipeline,
+    )
+    from opticalflowclustering_tpu_torch.utils import profiling
+
+    params, grid = FarnebackParams(), GridParams()
+    gray = bgr2gray(torch.from_numpy(frames[: SPATIAL_PAIRS + 1]).to(dev))
+    prev, nxt = gray[:-1], gray[1:]
+    n, h, w = prev.shape
+    mhalf = params.winsize // 2
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for tp in (2, 4):
+        h_loc = -(-h // (tp * 2**params.levels)) * 2**params.levels
+        for k, _, w_k, _ in pyramid_plan(h, w, params):
+            m = torch.randn(n, 5, h_loc // 2**k + 2 * mhalf, w_k, generator=gen, device=dev) * 10
+            check(all(torch.equal(a, b) for a, b in zip(kw.box_solve(m, params.winsize),
+                                                        kw.box_solve_reference(m, params.winsize))),
+                  f"box_solve [{n},5,{m.shape[2]},{w_k}]: not bitwise")
+    print(f"check box_solve at the M-region shapes of the tp=2 and tp=4 blocks: bitwise equal to the plain version")
+
+    mesh2 = make_mesh({"tp": 2}, [dev] * 2)
+    mesh4 = make_mesh({"tp": 4}, [dev] * 4)
+    launches = {}
+
+    def counted(name, fn):
+        kw.reset_launches()
+        out = fn()
+        sync(dev)
+        launches[name] = dict(kw.LAUNCHES)
+        return out
+
+    got = counted("spatial_hue_tp2", lambda: spatial_hue_pipeline(prev, nxt, mesh2, "tp", grid, params))
+    flow = farneback_flow(prev, nxt, params)
+    bgr = render_flow_hsv_bgr(flow)
+    cen, hue = dominant_hue_k1_frames(bgr, grid)
+    want = {"hue_table": hue, "rgb_hue_table": grid_mean_hue(bgr, grid), "centroids": cen,
+            "mean_magnitude": magnitude(flow[..., 0], flow[..., 1]).mean(dim=(-2, -1))}
+    rel = check_tables({k: t.cpu().numpy() for k, t in zip(want, got)}, {k: t.cpu().numpy() for k, t in want.items()},
+                       "spatial_hue_pipeline tp=2 vs unsharded")
+    tp_flow = counted("spatial_flow_tp2", lambda: spatial_farneback_flow(prev, nxt, mesh2, "tp", params))
+    diff = float((tp_flow - flow).abs().max())
+    check(diff <= 5e-5, f"spatial flow tp=2: max |Δ| {diff} px from the unsharded flow")
+    pad = (-h) % (4 * 2**params.levels)
+
+    def padded(g):
+        return torch.cat([g, g[:, -1:].expand(n, pad, w)], dim=1)
+
+    pad_flow = counted("spatial_padded_tp4", lambda: spatial_farneback_flow_padded(prev, nxt, mesh4, "tp", params))
+    pad_want = farneback_flow(padded(prev), padded(nxt), params)[:, :h]
+    pad_diff = float((pad_flow - pad_want).abs().max())
+    check(tuple(pad_flow.shape) == (n, h, w, 2) and pad_diff <= 5e-5,
+          f"padded spatial flow tp=4: {tuple(pad_flow.shape)}, max |Δ| {pad_diff} px")
+    design = {"spatial_hue_tp2": spatial_runs(h, w, 2, params), "spatial_flow_tp2": spatial_runs(h, w, 2, params),
+              "spatial_padded_tp4": spatial_runs(h + pad, w, 4, params)}
+    for name, runs in design.items():
+        check(launches[name] == {"warp_m": 0, "box_solve": runs},
+              f"{name}: expected {runs} box_solve launches and no warp_m, got {launches[name]}")
+    print(f"spatial {n} pairs {w}x{h}, FarnebackParams() ({len(pyramid_plan(h, w, params))} levels): "
+          f"spatial_hue_pipeline on a tp=2 mesh of {dev}: tables bitwise equal to the unsharded pipeline's "
+          f"(mean_magnitude rel diff {rel:.3g}); spatial flow tp=2 max |Δ| {diff:.3g} px, padded tp=4 "
+          f"({h + pad} rows) max |Δ| {pad_diff:.3g} px; launches {launches} (design box_solve {design})")
+    ms = {"unsharded exact farneback_flow": profiling.event_ms(lambda: farneback_flow(prev, nxt, params), REPEATS),
+          "spatial_farneback_flow tp=2": profiling.event_ms(
+              lambda: spatial_farneback_flow(prev, nxt, mesh2, "tp", params), REPEATS),
+          "spatial_farneback_flow_padded tp=4": profiling.event_ms(
+              lambda: spatial_farneback_flow_padded(prev, nxt, mesh4, "tp", params), REPEATS),
+          "spatial_hue_pipeline tp=2": profiling.event_ms(
+              lambda: spatial_hue_pipeline(prev, nxt, mesh2, "tp", grid, params), REPEATS)}
+    print(f"time spatial, {n} pairs {w}x{h}, ms per pair, least of {REPEATS} (CUDA events; the blocks of one card "
+          f"run in turn): {'; '.join(f'{k} {v / n:.3f}' for k, v in ms.items())} {stamp}")
+    return launches
+
+
+def dryrun_phase(dev, stamp: str) -> dict:
+    """Phase 5u: warp_m within 1e-4/1e-3 of its plain version and box_solve
+    bitwise equal to its own at the level shapes of pass 1.75's 512x128
+    'fast' pyramid, for a dp x sp block's 2 pairs and the unsharded flow's 8;
+    then graft_entry.dryrun_multichip(4) on a mesh naming `dev` four
+    times (each pass's line and launches printed by it), each pass's
+    launches held against the design (the spatial passes box_solve only,
+    pass 1.75's 'fast' flow both kernels, the levels=1 exact passes none);
+    then entry()'s forward at 720p, its tables bitwise equal to
+    process_frames' over the same frames. Returns the launches by path."""
+    import torch
+
+    from opticalflowclustering_tpu_torch import graft_entry
+    from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams, pyramid_plan
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.pipeline.bounce import PipelineConfig, process_frames
+
+    fast = FarnebackParams(warp_mode="fast")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    err, shapes = 0.0, []
+    for b in (2, 8):
+        for _, h_k, w_k, _ in pyramid_plan(512, 128, fast):
+            r0, r1 = (torch.randn(b, 5, h_k, w_k, generator=gen, device=dev) * 10 for _ in range(2))
+            fx, fy = (torch.randn(b, h_k, w_k, generator=gen, device=dev) * 3 for _ in range(2))
+            m = kw.warp_m(r0, r1, fx, fy)
+            want = kw.warp_m_reference(r0, r1, fx, fy)
+            e = float((m - want).abs().max())
+            err = max(err, e)
+            check(torch.allclose(m, want, rtol=1e-4, atol=1e-3), f"warp_m [{b},5,{h_k},{w_k}]: max abs err {e}")
+            check(all(torch.equal(a, c) for a, c in zip(kw.box_solve(m, fast.winsize),
+                                                        kw.box_solve_reference(m, fast.winsize))),
+                  f"box_solve [{b},5,{h_k},{w_k}]: not bitwise")
+            shapes.append(f"[{b},5,{h_k},{w_k}]")
+    print(f"check warp_m (max abs err {err:.3g}) and box_solve (bitwise) at the 512x128 'fast' level shapes "
+          f"{' '.join(shapes)}: equal to the plain versions")
+
+    t0 = time.perf_counter()
+    got = graft_entry.dryrun_multichip(4, devices=[dev] * 4)
+    t = time.perf_counter() - t0
+    sp1 = FarnebackParams(levels=1)
+    fast_runs = (4 + 1) * kernel_runs(1, 1, 512, 128, fast)  # 4 blocks, then the unsharded flow
+    design = {"1": (0, 0), "1.5": (0, spatial_runs(192, 96, 4, sp1)), "1.6": (0, spatial_runs(720, 96, 4, sp1)),
+              "1.7": (0, spatial_runs(192, 96, 4, sp1)), "1.75": (fast_runs, fast_runs), "2": (0, 0)}
+    for name, (wm, bs) in design.items():
+        check(got[name] == {"warp_m": wm, "box_solve": bs},
+              f"dryrun pass {name}: expected warp_m {wm}, box_solve {bs}, got {got[name]}")
+    print(f"dryrun_multichip(4) on a mesh of {dev} x4: six passes ok, launches as designed; {t:.2f} s {stamp}")
+
+    fn, (frames,) = graft_entry.entry(dev)
+    kw.reset_launches()
+    t0 = time.perf_counter()
+    out = fn(frames)
+    sync(dev)
+    t = time.perf_counter() - t0
+    launches = dict(kw.LAUNCHES)
+    want = process_frames(frames, PipelineConfig(chunk=4, emit_flow_bgr=False), dev)
+    check([tuple(o.shape) for o in out] == [(4, 350), (4, 350), (4,)], f"entry shapes {[o.shape for o in out]}")
+    check(all(bool(torch.isfinite(o.float()).all()) for o in out), "entry: non-finite output")
+    for o, k in zip(out, ("hue_table", "rgb_hue_table", "mean_magnitude")):
+        check(np.array_equal(o.cpu().numpy(), want[k]), f"entry {k} differs from process_frames'")
+    check(launches == {"warp_m": 0, "box_solve": 0}, f"entry (exact flow) launched {launches}")
+    print(f"entry() forward, {frames.shape[0]} frames {frames.shape[2]}x{frames.shape[1]}, exact flow: tables equal "
+          f"to process_frames'; launches {launches}; {t * 1e3:.1f} ms {stamp}")
+    return {f"dryrun_{k}": v for k, v in got.items()} | {"entry": launches}
+
+
+def quad_image(h: int, w: int, seed: int, fill=(235, 235, 235), ground=35) -> np.ndarray:
+    """[h, w, 3] uint8: a light quadrilateral, rotated by a seeded angle,
+    with a few dark lines of "text" on a dark, slightly noisy ground (the
+    document the scanner looks for; also a Game Boy screen)."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    img = np.clip(ground + rng.normal(0, 4, (h, w, 3)), 0, 255).astype(np.uint8)
+    rect = ((w / 2 + rng.uniform(-0.05, 0.05) * w, h / 2 + rng.uniform(-0.05, 0.05) * h),
+            (0.55 * w, 0.75 * h), float(rng.uniform(-12, 12)))
+    quad = cv2.boxPoints(rect).round().astype(np.int32)
+    cv2.fillPoly(img, [quad], fill)
+    for i in range(4):
+        y = int(h * (0.35 + 0.08 * i))
+        cv2.line(img, (int(0.38 * w), y), (int(0.62 * w), y), (20, 20, 20), max(2, h // 180))
+    return img
+
+
+def extras_phase(dev, stamp: str, frames: np.ndarray, tmp: str) -> None:
+    """Phase 5v: the extras at the clip's size, card against CPU: the scan
+    CLI (--device cuda vs cpu) on a seeded 1280x720 `quad_image` (the same
+    lines, byte-equal PNGs), the searchengine CLI's index and search over 32
+    seeded 166x100 images (the same lines, features within rtol 1e-6),
+    color_transfer of two frames (at most 1e-3 of the BGR codes apart, the
+    LAB gap), skin_mask, locate_barcode (bars drawn on a frame) and
+    brightest_spot bitwise (its gray within rtol 1e-6), find_screen on
+    another quad image bitwise and the Zernike descriptor of its
+    sprite_outline within rtol 1e-5. Prints each one's least ms on the card
+    over REPEATS calls (CUDA events, host work included)."""
+    import cv2
+    import torch
+
+    from opticalflowclustering_tpu_torch.cli import scan, searchengine
+    from opticalflowclustering_tpu_torch.extras import color_transfer, detectors, document_scanner, pokedex
+    from opticalflowclustering_tpu_torch.extras.search_engine import index_images
+    from opticalflowclustering_tpu_torch.utils import profiling
+
+    h, w = frames.shape[1:3]
+    d = os.path.join(tmp, "extras")
+    os.makedirs(os.path.join(d, "photos"))
+    ms, notes = {}, []
+
+    doc = quad_image(h, w, 0)
+    cv2.imwrite(os.path.join(d, "doc.png"), doc)
+    with contextlib.chdir(d):
+        lines = {where: run_cli(scan.main, ["-i", "doc.png", "-o", where, "--device", where])[0]
+                 for where in ("cuda", "cpu")}
+        check(lines["cuda"][0].startswith("wrote cuda_warped.png") and
+              [ln.replace("cuda", "cpu") for ln in lines["cuda"]] == lines["cpu"], f"scan printed {lines}")
+        for suffix in ("_warped.png", "_binarized.png"):
+            with open("cuda" + suffix, "rb") as a, open("cpu" + suffix, "rb") as b:
+                check(a.read() == b.read(), f"scan {suffix}: card and CPU files differ")
+        notes.append(f"scan: {lines['cuda'][0]}, PNGs byte-equal to the CPU run's")
+        ms["scan_document"] = profiling.event_ms(lambda: document_scanner.scan_document(doc, device=dev), REPEATS)
+
+        rng = np.random.default_rng(0)
+        for i in range(32):
+            cv2.imwrite(os.path.join("photos", f"p{i:02d}.png"), rng.integers(0, 256, (100, 166, 3), dtype=np.uint8))
+        for where in ("cuda", "cpu"):
+            lines[where] = (run_cli(searchengine.main, ["index", "-d", "photos", "-i", f"{where}.npz",
+                                                         "--device", where])[0]
+                            + run_cli(searchengine.main, ["search", "-i", f"{where}.npz", "-q", "photos/p07.png",
+                                                          "-k", "5", "--device", where])[0])
+        a, b = np.load("cuda.npz"), np.load("cpu.npz")
+        check(lines["cuda"][0] == "indexed 32 images -> cuda.npz" and lines["cuda"][1:] == lines["cpu"][1:]
+              and lines["cuda"][1].endswith("\tp07.png"), f"searchengine printed {lines}")
+        np.testing.assert_allclose(a["features"], b["features"], rtol=1e-6, atol=1e-9, err_msg="searchengine index")
+        notes.append(f"searchengine: index of 32 and search -k 5 print the CPU run's lines ({lines['cuda'][1]!r} "
+                     f"first)")
+        imgs = np.stack([cv2.imread(os.path.join("photos", f"p{i:02d}.png")) for i in range(32)])
+        ms["index_images 32x166x100"] = profiling.event_ms(lambda: index_images(imgs, device=dev), REPEATS)
+
+    src, tar = frames[len(frames) // 3], frames[2 * len(frames) // 3]
+    card = color_transfer.color_transfer(src, tar, device=dev).cpu().numpy()
+    cpu = color_transfer.color_transfer(src, tar, device="cpu").numpy()
+    gap = np.abs(card.astype(np.int16) - cpu.astype(np.int16))
+    share = float((gap > 0).mean())
+    check(card.shape == tar.shape and share <= 1e-3, f"color_transfer: {share} of the codes differ card vs CPU")
+    notes.append(f"color_transfer: {int((gap > 0).sum())} of {gap.size} codes differ card vs CPU (largest gap "
+                 f"{int(gap.max())}; tolerance a share of 1e-3)")
+    ms["color_transfer"] = profiling.event_ms(lambda: color_transfer.color_transfer(src, tar, device=dev), REPEATS)
+
+    frame = frames[len(frames) // 2]
+    skin = frame.copy()
+    skin[h // 4 : h // 2, w // 4 : w // 2] = (120, 150, 200)  # a skin-toned patch (hue ~10)
+    a = detectors.skin_mask(skin, device=dev).cpu()
+    check(torch.equal(a, detectors.skin_mask(skin, device="cpu")) and bool(a.any()), "skin_mask: card vs CPU")
+    ms["skin_mask"] = profiling.event_ms(lambda: detectors.skin_mask(skin, device=dev), REPEATS)
+    bars = frame.copy()  # tests/test_extras.py's barcode: 2-px bars every 4 px on white, softened
+    cv2.rectangle(bars, (w // 3 - 8, h // 3 - 8), (2 * w // 3 + 8, 2 * h // 3 + 8), (255, 255, 255), -1)
+    for x in range(w // 3, 2 * w // 3, 4):
+        cv2.rectangle(bars, (x, h // 3), (x + 1, 2 * h // 3), (0, 0, 0), -1)
+    bars = cv2.GaussianBlur(bars, (3, 3), 0)
+    box = detectors.locate_barcode(bars, device=dev)
+    check(box.shape == (4, 2) and np.array_equal(box, detectors.locate_barcode(bars, device="cpu")),
+          f"locate_barcode: card {box.tolist()} vs CPU")
+    ms["locate_barcode"] = profiling.event_ms(lambda: detectors.locate_barcode(bars, device=dev), REPEATS)
+    for radius in (0, 41):
+        (xy, g), (cxy, cg) = (detectors.brightest_spot(frame, radius, device=where) for where in (dev, "cpu"))
+        check(xy == cxy and torch.allclose(g.cpu(), cg, rtol=1e-6, atol=1e-4), f"brightest_spot r={radius}: {xy} {cxy}")
+        ms[f"brightest_spot r={radius}"] = profiling.event_ms(
+            lambda r=radius: detectors.brightest_spot(frame, r, device=dev), REPEATS)
+    notes.append(f"skin_mask, locate_barcode (box {box.tolist()}) and brightest_spot ({xy}) equal card vs CPU")
+
+    screen_img = quad_image(h, w, 1, fill=(150, 190, 140))
+    screen = pokedex.find_screen(screen_img, device=dev)
+    check(screen is not None and np.array_equal(screen, pokedex.find_screen(screen_img, device="cpu")),
+          "find_screen: card vs CPU")
+    ms["find_screen"] = profiling.event_ms(lambda: pokedex.find_screen(screen_img, device=dev), REPEATS)
+    outline = pokedex.sprite_outline(255 - screen, device=dev)
+    desc = pokedex.ZernikeMoments(21, device=dev).describe(outline)
+    want = pokedex.ZernikeMoments(21, device="cpu").describe(pokedex.sprite_outline(255 - screen, device="cpu"))
+    np.testing.assert_allclose(desc, want, rtol=1e-5, atol=1e-6, err_msg="Zernike descriptor card vs CPU")
+    notes.append(f"find_screen: a {screen.shape[1]}x{screen.shape[0]} screen equal card vs CPU, its Zernike "
+                 f"descriptor within rtol 1e-5")
+    print(f"extras {w}x{h}: {'; '.join(notes)}")
+    print(f"time extras on the card, {w}x{h}, least of {REPEATS} (CUDA events, host work included): "
+          f"{'; '.join(f'{k} {v:.2f} ms' for k, v in ms.items())} {stamp}")
+
+
+def spatial_dryrun_extras_phases(dev, stamp: str, frames: np.ndarray) -> dict:
+    """Phases 5t-5v: the spatial flow, the dryrun entry and the extras at the
+    clip's size, each run with the kernel launch counts set to 0 just before
+    it and read just after and held against its design (the extras launch
+    no kernel). Returns the launches by path."""
+    import tempfile
+
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+
+    check(have_cv2(), "the extras' CLIs and images need cv2, which is not importable")
+    launches = spatial_phase(dev, stamp, frames)
+    launches.update(dryrun_phase(dev, stamp))
+    with tempfile.TemporaryDirectory(prefix="ofc-smoke-") as tmp:
+        kw.reset_launches()
+        extras_phase(dev, stamp, frames, tmp)
+        sync(dev)
+        launches["extras"] = dict(kw.LAUNCHES)
+    check(launches["extras"] == {"warp_m": 0, "box_solve": 0}, f"extras launched {launches['extras']}")
+    return launches
+
+
 def cell_points(flow_bgr, grid):
     """Every grid cell of the [n, H, W, 3] uint8 frames (a tensor), cut to
     its top-left 50×50 crop (smaller where the grid step is), through
@@ -1496,6 +1817,11 @@ def main() -> int:
     # 1280x720, each run with the launch counts set to 0 just before and
     # read just after.
     path_launches.update(overlay_ops_phases(dev, stamp, frames))
+
+    # Phases 5t-5v: the row-sharded flow, the dryrun entry and the extras at
+    # 1280x720, each run with the launch counts set to 0 just before and
+    # read just after.
+    path_launches.update(spatial_dryrun_extras_phases(dev, stamp, frames))
 
     # Phases 5f-5l: the clustering and model paths at 1280x720, each run
     # with the launch counts set to 0 just before and read just after.

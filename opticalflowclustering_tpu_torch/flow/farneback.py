@@ -184,35 +184,40 @@ def poly_expansion(
     )
 
 
+def _border_ramp(n: int) -> np.ndarray:
+    """One axis of OpenCV's edge taper: float32 ones with {0.14, 0.14,
+    0.4472, 0.4472, 0.4472} multiplied in within 5 px of each end."""
+    ramp = np.ones(n, dtype=np.float32)
+    for i in range(min(_BORDER, n)):
+        ramp[i] *= _BORDER_SCALE[i]
+        ramp[n - 1 - i] *= _BORDER_SCALE[i]
+    return ramp
+
+
 @functools.lru_cache(maxsize=64)
 def _border_taper(h: int, w: int) -> np.ndarray:
-    """OpenCV's per-pixel edge taper: product of per-side ramps
-    {0.14, 0.14, 0.4472, 0.4472, 0.4472} within 5 px of each border."""
-    ramp_x = np.ones(w, dtype=np.float32)
-    ramp_y = np.ones(h, dtype=np.float32)
-    for i in range(min(_BORDER, w)):
-        ramp_x[i] *= _BORDER_SCALE[i]
-        ramp_x[w - 1 - i] *= _BORDER_SCALE[i]
-    for i in range(min(_BORDER, h)):
-        ramp_y[i] *= _BORDER_SCALE[i]
-        ramp_y[h - 1 - i] *= _BORDER_SCALE[i]
-    return ramp_y[:, None] * ramp_x[None, :]
+    """OpenCV's per-pixel edge taper: the product of the row and column
+    ramps."""
+    return _border_ramp(h)[:, None] * _border_ramp(w)[None, :]
 
 
 def _warp_gather(
     r1: torch.Tensor, y1c: torch.Tensor, x1c: torch.Tensor, fx, fy
 ) -> torch.Tensor:
     """Exact bilinear warp of channel-first r1 [..., C, H, W] at the clamped
-    integer corners (y1c, x1c) [..., H, W] with fractions (fx, fy)."""
+    integer corners (y1c, x1c) [..., Ho, W] with fractions (fx, fy); the
+    output grid may have fewer rows than r1 (a row block's M region
+    sampling its extended block, `parallel/spatial.py`)."""
     c, h, w = r1.shape[-3], r1.shape[-2], r1.shape[-1]
+    ho = y1c.shape[-2]
     lead = tuple(r1.shape[:-3])
     flat = r1.reshape(lead + (c, h * w))
     base = (y1c.to(torch.int64) * w + x1c.to(torch.int64)).reshape(
-        lead + (1, h * w)
-    ).expand(lead + (c, h * w))
+        lead + (1, ho * w)
+    ).expand(lead + (c, ho * w))
 
     def corner(off):
-        return torch.gather(flat, -1, base + off).reshape(lead + (c, h, w))
+        return torch.gather(flat, -1, base + off).reshape(lead + (c, ho, w))
 
     p00, p01, p10, p11 = corner(0), corner(1), corner(w), corner(w + 1)
     fxe = fx.unsqueeze(-3)
@@ -358,6 +363,12 @@ def pyramid_plan(
     return plan
 
 
+def box_solve_takes(winsize: int) -> bool:
+    """Whether the box_solve kernel takes this box window (the row-sharded
+    flow, `parallel/spatial.py`, gates its solve on it too)."""
+    return winsize <= MAX_KERNEL_WINSIZE
+
+
 def uses_kernels(params: FarnebackParams) -> bool:
     """Whether `farneback_flow` runs its inner loop through the kernel
     wrappers (the reference's `fused_tpu` gate, `flow/farneback.py:480-485`,
@@ -366,7 +377,7 @@ def uses_kernels(params: FarnebackParams) -> bool:
     return (
         params.warp_mode in ("fast", "fast16")
         and not params.gaussian_win
-        and params.winsize <= MAX_KERNEL_WINSIZE
+        and box_solve_takes(params.winsize)
     )
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from opticalflowclustering_tpu_torch.ops.colorspace import hsv2bgr
-from opticalflowclustering_tpu_torch.ops.polar import cart_to_polar, normalize_minmax
+from opticalflowclustering_tpu_torch.ops.polar import cart_to_polar, normalize_minmax_given_range
 from opticalflowclustering_tpu_torch.runtime import f32
 
 
@@ -23,15 +23,36 @@ def _flow_hue_u8(ang: torch.Tensor) -> torch.Tensor:
     return (ang * f32(180.0 / 3.141592653589793 / 2.0)).to(torch.uint8)
 
 
-def render_flow_hsv(flow: torch.Tensor) -> torch.Tensor:
-    """[..., H, W, 2] float flow → [..., H, W, 3] uint8 HSV image."""
+def _render_hsv(flow: torch.Tensor, smin=None, smax=None) -> torch.Tensor:
+    """[..., H, W, 2] float flow → [..., H, W, 3] uint8 HSV image, the value
+    normalized over the magnitude range [smin, smax] (default: each frame's
+    own)."""
     mag, ang = cart_to_polar(flow[..., 0], flow[..., 1])
+    if smin is None:
+        smin = torch.amin(mag, dim=(-2, -1), keepdim=True)
+        smax = torch.amax(mag, dim=(-2, -1), keepdim=True)
     hue = _flow_hue_u8(ang)
-    val = normalize_minmax(mag, 0.0, 255.0, axis=(-2, -1)).to(torch.uint8)
+    val = normalize_minmax_given_range(mag, smin, smax, 0.0, 255.0).to(torch.uint8)
     sat = torch.full_like(hue, 255)
     return torch.stack([hue, sat, val], dim=-1)
 
 
+def render_flow_hsv(flow: torch.Tensor) -> torch.Tensor:
+    """[..., H, W, 2] float flow → [..., H, W, 3] uint8 HSV image."""
+    return _render_hsv(flow)
+
+
 def render_flow_hsv_bgr(flow: torch.Tensor) -> torch.Tensor:
     """[..., H, W, 2] float flow → [..., H, W, 3] uint8 BGR flow image."""
-    return hsv2bgr(render_flow_hsv(flow))
+    return hsv2bgr(_render_hsv(flow))
+
+
+def render_flow_hsv_bgr_given_range(
+    flow: torch.Tensor, smin: torch.Tensor, smax: torch.Tensor
+) -> torch.Tensor:
+    """render_flow_hsv_bgr with the per-frame magnitude range given
+    (smin/smax broadcastable to [..., 1, 1]): the row-sharded pipeline
+    (`parallel/spatial.spatial_hue_pipeline`) takes the frame's min and max
+    over its shards, which equal the unsharded reduction exactly, so the
+    rendered bytes are the unsharded render's."""
+    return hsv2bgr(_render_hsv(flow, smin, smax))

@@ -26,19 +26,25 @@ def calc_hist(
     """cv2.calcHist for one image: [..., H, W, C] uint8 → float32 histogram
     of shape `bins`. OpenCV's bin mapping: bin = floor((v - lo) · nbins /
     (hi - lo)), values at or above hi excluded."""
+    ids, valid = _bin_ids(image, channels, bins, ranges)
+    if mask is not None:
+        valid &= mask.to(torch.bool)
+    return torch.bincount(ids[valid], minlength=int(np.prod(bins))).to(torch.float32).reshape(bins)
+
+
+def _bin_ids(image: torch.Tensor, channels, bins, ranges) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each pixel's flat bin id [..., H, W] int64 and whether it lies in
+    every range."""
     x = image.to(torch.float32)
-    flat_bins = int(np.prod(bins))
     ids = torch.zeros(x.shape[:-1], dtype=torch.int64, device=x.device)
     valid = torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
-    stride = flat_bins
+    stride = int(np.prod(bins))
     for ch, nb, (lo, hi) in zip(channels, bins, ranges):
         b = torch.floor((x[..., ch] - lo) * (nb / (hi - lo))).to(torch.int64)
         valid &= (b >= 0) & (b < nb)
         stride //= nb
         ids += torch.clamp(b, 0, nb - 1) * stride
-    if mask is not None:
-        valid &= mask.to(torch.bool)
-    return torch.bincount(ids[valid], minlength=flat_bins).to(torch.float32).reshape(bins)
+    return ids, valid
 
 
 def normalize_l2(hist: torch.Tensor) -> torch.Tensor:
@@ -79,4 +85,17 @@ def chi2_distance(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-10) -> torch
 def rgb_histogram_feature(image: torch.Tensor, bins=(8, 8, 8)) -> torch.Tensor:
     """`RGBHistogram.describe` (`rgbhistogram.py:8-13`): 3-D colour
     histogram, L2-normalized and flattened, the CBIR index feature."""
-    return normalize_l2(calc_hist(image, [0, 1, 2], list(bins), [(0, 256)] * 3)).ravel()
+    return rgb_histogram_features(image[None], bins)[0]
+
+
+def rgb_histogram_features(images: torch.Tensor, bins=(8, 8, 8)) -> torch.Tensor:
+    """`rgb_histogram_feature` of every image of [N, H, W, 3] uint8 in one
+    batched call → [N, prod(bins)] float32: one `bincount` over the images'
+    bin ids offset by image, then each row's L2 normalization."""
+    flat = int(np.prod(bins))
+    ids, valid = _bin_ids(images, [0, 1, 2], list(bins), [(0, 256)] * 3)
+    n = images.shape[0]
+    ids = ids + torch.arange(n, device=ids.device).reshape((n,) + (1,) * (ids.ndim - 1)) * flat
+    hist = torch.bincount(ids[valid], minlength=n * flat).to(torch.float32).reshape(n, flat)
+    norm = torch.linalg.vector_norm(hist, dim=-1, keepdim=True)
+    return torch.where(norm > 0, hist / norm, hist)

@@ -40,3 +40,10 @@ def resolve_device(name: str | torch.device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(name)!r} (use 'cuda' or 'cpu')")
     return dev
+
+
+def on_device(x, device: str | torch.device) -> torch.Tensor:
+    """A numpy array or tensor as a tensor on `device` (resolved and checked
+    by `resolve_device`)."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+    return t.to(resolve_device(device))

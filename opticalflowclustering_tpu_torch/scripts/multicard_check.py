@@ -1,7 +1,7 @@
 """The dp×sp paths across several cards: a check, not a benchmark.
 
     python -m opticalflowclustering_tpu_torch.scripts.multicard_check --device cuda
-    python -m opticalflowclustering_tpu_torch.scripts.multicard_check --device cpu --size 64 96
+    python -m opticalflowclustering_tpu_torch.scripts.multicard_check --device cpu --size 64 96 --spatial-size 336 128
 
 On `cuda` it needs four cards; on `cpu` it names the CPU four times and uses
 gloo. On four 17-frame clips (`scripts/clips.synth_frames`, written as MJPG,
@@ -16,7 +16,13 @@ so cv2 is needed) it checks that:
      `multihost.initialize` (NCCL on cuda, gloo on cpu), pass an
      `all_reduce`, build the global 2×2 mesh, and run
      `process_video_queue_dp` on their own rows, each writing its
-     round-robin share with artifacts equal to the sequential queue's.
+     round-robin share with artifacts equal to the sequential queue's;
+  4. the row-sharded flow across cards (at --spatial-size, default 720×1280,
+     with the reference's Farneback call): `spatial_farneback_flow_padded`
+     on a tp=4 mesh of the four devices within 5e-5 px of (in fact bitwise
+     equal to) the unsharded flow of the padded frames on the first, and
+     `spatial_hue_pipeline` on a tp=2 mesh of two of them, its tables
+     bitwise the unsharded pipeline's.
 
 It prints the kernel launches of each run and ends with "multicard check:
 ok"; any failed check raises, so the exit code is non-zero.
@@ -117,10 +123,52 @@ def run_processes(device: str, clips_dir: str, out_dir: str, seq_dir: str) -> No
         check(p.returncode == 0, f"rank {rank} exited {p.returncode}")
 
 
+def spatial_check(devs, h: int, w: int) -> None:
+    """Check 4: the row-sharded flow and hue pipeline across the devices."""
+    from opticalflowclustering_tpu_torch.features.dominant_color import dominant_hue_k1_frames
+    from opticalflowclustering_tpu_torch.features.grid import GridParams, grid_mean_hue
+    from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams, farneback_flow, pyramid_plan
+    from opticalflowclustering_tpu_torch.flow.render import render_flow_hsv_bgr
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
+    from opticalflowclustering_tpu_torch.parallel.mesh import make_mesh
+    from opticalflowclustering_tpu_torch.parallel.spatial import spatial_farneback_flow_padded, spatial_hue_pipeline
+    from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
+
+    params, grid = FarnebackParams(), GridParams()
+    gray = bgr2gray(torch.from_numpy(synth_frames(3, h, w)).to(devs[0]))
+    prev, nxt = gray[:-1], gray[1:]
+    kw.reset_launches()
+    flow = spatial_farneback_flow_padded(prev, nxt, make_mesh({"tp": 4}, devs), "tp", params)
+    launches = dict(kw.LAUNCHES)
+    pad = (-h) % (4 * 2**params.levels)
+
+    def padded(g):
+        return torch.cat([g, g[:, -1:].expand(g.shape[0], pad, w)], dim=1)
+
+    want = farneback_flow(padded(prev), padded(nxt), params)[:, :h]
+    diff = float((flow - want).abs().max())
+    check(tuple(flow.shape) == (2, h, w, 2) and diff <= 5e-5, f"spatial flow tp=4: max |Δ| {diff} px")
+    # one box_solve launch per block, level and iteration on the card; the CPU runs the plain version
+    runs = 4 * len(pyramid_plan(h + pad, w, params)) * params.iterations if devs[0].type == "cuda" else 0
+    check(launches == {"warp_m": 0, "box_solve": runs}, f"spatial flow launches {launches}, expected {runs}")
+    got = spatial_hue_pipeline(prev, nxt, make_mesh({"tp": 2}, devs[:2]), "tp", grid, params)
+    f = farneback_flow(prev, nxt, params)
+    bgr = render_flow_hsv_bgr(f)
+    cen, hue = dominant_hue_k1_frames(bgr, grid)
+    for name, a, b in (("hue", got[0], hue), ("rgb_hue", got[1], grid_mean_hue(bgr, grid)), ("centroids", got[2], cen)):
+        check(torch.equal(a.cpu(), b.cpu()), f"spatial hue pipeline {name}: not equal")
+    print(f"4. spatial_farneback_flow_padded 2 pairs {w}x{h} on a tp=4 mesh of {[str(d) for d in devs]}: max |Δ| "
+          f"{diff:.3g} px from the unsharded flow on {devs[0]}, launches {launches}; spatial_hue_pipeline on "
+          f"{[str(d) for d in devs[:2]]}: tables equal to the unsharded pipeline's")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--size", type=int, nargs=2, default=(720, 1280), metavar=("H", "W"))
+    ap.add_argument("--spatial-size", type=int, nargs=2, default=(720, 1280), metavar=("H", "W"),
+                    help="frame size of check 4 (its tp=4 blocks must clear the flow's halo)")
     ap.add_argument("--worker", nargs=5, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
@@ -184,6 +232,7 @@ def main(argv=None) -> int:
         run_processes(args.device, clips_dir, os.path.join(tmp, "procs"), seq_dir)
         print(f"3. two processes ({'NCCL' if args.device == 'cuda' else 'gloo'}), two devices each: "
               "all_reduce, global mesh, each its share of the dp queue = sequential queue's")
+    spatial_check(devs, *args.spatial_size)
     print("multicard check: ok")
     return 0
 

@@ -153,7 +153,11 @@ def test_port_sources_import_nothing_of_jax(tmp_path):
                 "parallel/train.py", "convert.py", "cli/drawgrids.py",
                 "cli/vectordistance.py", "ops/morphology.py", "extras/contours.py", "io/overlays.py",
                 "ops/threshold.py", "ops/edges.py", "ops/hough.py", "cli/detectcircles.py", "ops/ssim.py",
-                "ops/slic.py", "cli/superpixels.py", "ops/histogram.py", "ops/moments.py", "ops/warp.py"):
+                "ops/slic.py", "cli/superpixels.py", "ops/histogram.py", "ops/moments.py", "ops/warp.py",
+                "parallel/spatial.py", "graft_entry.py", "extras/cluster_viz.py", "extras/compare_images.py",
+                "extras/histograms.py", "extras/compare_histograms.py", "extras/color_transfer.py",
+                "extras/search_engine.py", "extras/detectors.py", "extras/document_scanner.py", "extras/pokedex.py",
+                "cli/scan.py", "cli/searchengine.py"):
         assert os.path.join(port, rel) in sources, rel
     bad = {os.path.relpath(p, REPO): f for p in sources if (f := _foreign_imports(p))}
     assert bad == {}
@@ -393,6 +397,42 @@ def test_video_path_modules_import_no_jax_cv2_or_pandas():
         text=True,
         timeout=300,
     )
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "LOADED []" in r.stdout, r.stdout
+
+
+_SURFACE_PROBE = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from opticalflowclustering_tpu_torch import graft_entry, parallel
+from opticalflowclustering_tpu_torch.cli import scan, searchengine
+from opticalflowclustering_tpu_torch.extras import (cluster_viz, color_transfer, compare_histograms, compare_images,
+                                                    detectors, document_scanner, histograms, pokedex, search_engine)
+from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams
+rng = np.random.default_rng(0)
+prev = rng.integers(0, 256, (80, 64), dtype=np.uint8)
+mesh = parallel.make_mesh({"tp": 2}, ["cpu"] * 2)
+flow = parallel.spatial_farneback_flow(prev, np.roll(prev, 1, 0), mesh, params=FarnebackParams(levels=1), warp_radius=8)
+assert tuple(flow.shape) == (80, 64, 2)
+img = rng.integers(0, 256, (40, 60, 3), dtype=np.uint8)
+assert search_engine.index_images(img[None], device="cpu").shape == (1, 512)
+assert color_transfer.color_transfer(img, img[::-1], device="cpu").shape == (40, 60, 3)
+assert len(detectors.detect_colors(img, device="cpu")) == 4
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2", "pandas", "opticalflowclustering_tpu")]
+print("LOADED", bad)
+"""
+
+
+def test_spatial_entry_and_extras_modules_import_no_jax_or_cv2():
+    """In a fresh interpreter: import the spatial flow, the dryrun entry,
+    the nine extras and the scan and searchengine CLIs, and run the spatial
+    flow, a batched index and two extras on the CPU; no module of jax, cv2,
+    pandas or the JAX package is loaded."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", _SURFACE_PROBE], cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert "LOADED []" in r.stdout, r.stdout
 
@@ -652,4 +692,58 @@ def test_chip_smoke_overlay_and_ops_phases_rehearsal(monkeypatch, capsys):
                 "the same circles card vs CPU at 256x144", "slic labels equal card vs CPU at 256x144: 1.000000",
                 "detectcircles --device cuda: ", "superpixels --device cuda: superpixels_100.png: ",
                 "time ops on the card, 512x288", "hough_circles cv2-raw circles"):
+        assert tag in out, tag
+
+
+def test_chip_smoke_spatial_dryrun_extras_phases_rehearsal(monkeypatch, capsys):
+    """chip_smoke.spatial_dryrun_extras_phases on the CPU: "cuda" resolves to
+    the CPU in every module that resolves a device, the kernel entries are
+    counted plain versions, the card timer is a host clock, one timing
+    repeat, 5 frames of 336×128 (the smallest clip whose tp=4 blocks clear
+    the halo; 336 rows pad to 352 on tp=4). The spatial runs launch
+    box_solve blocks × levels × iterations times and warp_m never, the
+    dryrun's passes launch the design's kernels (pass 1.75 both), entry()
+    (its 720p frames cut to 144×256) none, the extras none; every check of
+    the phases runs."""
+    from opticalflowclustering_tpu_torch import graft_entry
+    from opticalflowclustering_tpu_torch.parallel import spatial
+    from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
+    from opticalflowclustering_tpu_torch.utils import profiling
+
+    def host_ms(fn, repeats=10, warmup=1):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    chip_smoke, bounce, _ = _rehearse_on_cpu(monkeypatch)
+    for mod in (spatial, graft_entry):
+        monkeypatch.setattr(mod, "resolve_device", bounce.resolve_device)
+    monkeypatch.setattr(profiling, "event_ms", host_ms)
+    entry = graft_entry.entry
+
+    def small_entry(device):  # entry()'s 720p frames, cut to 144x256
+        fn, (frames,) = entry(device)
+        return fn, (frames[:, :144, :256],)
+
+    monkeypatch.setattr(graft_entry, "entry", small_entry)
+    launches = chip_smoke.spatial_dryrun_extras_phases(torch.device("cpu"), "[cpu rehearsal]",
+                                                       synth_frames(5, 336, 128))
+    box = {"warp_m": 0, "box_solve": 2 * 3 * 3}  # 2 blocks x 3 levels at 336x128 x 3 iterations
+    zero = {"warp_m": 0, "box_solve": 0}
+    assert launches == {
+        "spatial_hue_tp2": box, "spatial_flow_tp2": box, "spatial_padded_tp4": {"warp_m": 0, "box_solve": 36},
+        "dryrun_1": zero, "dryrun_1.5": {"warp_m": 0, "box_solve": 24}, "dryrun_1.6": {"warp_m": 0, "box_solve": 24},
+        "dryrun_1.7": {"warp_m": 0, "box_solve": 24}, "dryrun_1.75": {"warp_m": 45, "box_solve": 45},
+        "dryrun_2": zero, "entry": zero, "extras": zero}
+    out = capsys.readouterr().out
+    for tag in ("check box_solve at the M-region shapes of the tp=2 and tp=4 blocks: bitwise",
+                "spatial 4 pairs 128x336, FarnebackParams() (3 levels): spatial_hue_pipeline on a tp=2 mesh of cpu: "
+                "tables bitwise equal", "padded tp=4 (352 rows)", "time spatial, 4 pairs 128x336, ms per pair",
+                "check warp_m (max abs err 0) and box_solve (bitwise) at the 512x128 'fast' level shapes "
+                "[2,5,128,32] [2,5,256,64] [2,5,512,128] [8,5,128,32]",
+                "dryrun_multichip: near-flagship geometry ok (bitwise)", "dryrun_multichip(4) on a mesh of cpu x4: "
+                "six passes ok", "entry() forward, 5 frames 256x144, exact flow: tables equal to process_frames'",
+                "scan: wrote cuda_warped.png cuda_binarized.png", "searchengine: index of 32 and search -k 5",
+                "color_transfer: 0 of ", "skin_mask, locate_barcode (box", "find_screen: a ",
+                "time extras on the card, 128x336"):
         assert tag in out, tag

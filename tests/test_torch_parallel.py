@@ -281,14 +281,16 @@ def test_two_process_gloo_queue(tmp_path):
 def test_multicard_check_script_on_cpu(capsys):
     """scripts/multicard_check.py --device cpu at 64×96: the dp CLI over four
     named devices equals the sequential CLI, the 2×2 temporal split equals
-    the unsharded pipeline, and its two gloo processes each write their
-    share equal to the sequential queue's (the checks it runs on four
-    cards with NCCL)."""
+    the unsharded pipeline, its two gloo processes each write their share
+    equal to the sequential queue's, and (at 336×128) the row-sharded flow
+    on tp=4 equals the unsharded flow and the tp=2 hue pipeline its tables
+    (the checks it runs on four cards with NCCL)."""
     from opticalflowclustering_tpu_torch.scripts import multicard_check
 
-    assert multicard_check.main(["--device", "cpu", "--size", "64", "96"]) == 0
+    assert multicard_check.main(["--device", "cpu", "--size", "64", "96", "--spatial-size", "336", "128"]) == 0
     out = capsys.readouterr().out
     for tag in ("1. processqueue --dp 2 --sp 2", "2. sharded_hue_pipeline_videos [2, 16, 64, 96, 3]",
                 "[rank 0] rank 0: 2 videos", "[rank 1] rank 1: 2 videos", "3. two processes (gloo)",
+                "4. spatial_farneback_flow_padded 2 pairs 128x336 on a tp=4 mesh", "max |Δ| 0 px",
                 "multicard check: ok"):
         assert tag in out, tag
