@@ -11,7 +11,14 @@ signature, then drives the video-file paths at 1280x720 with their kernel
 launches counted: the stream's device loop through its prefetch thread
 (tables equal to process_frames'), the sequential and the dp×sp queue on a
 2×2 mesh of the card (artifacts equal), the temporal split (equal to the
-unsharded pipeline) and the findcosine CLI; then flow EPE against
+unsharded pipeline) and the findcosine CLI; the native MJPEG decoder
+(built from the checkout's C++ source with g++ alone) on the clip written
+as an MJPG AVI and on demo_out/601_3.avi (bitwise equal at 1 thread and at
+every core, the demo clip equal to the JAX package's libjpeg decode by a
+pinned digest, within 5 codes of cv2's), its stream with its launches and
+the frames through each decoder counted (tables equal to process_frames'
+of the natively decoded frames), and decode frames/s and stream pairs/s
+beside cv2's; then flow EPE against
 cv2.calcOpticalFlowFarneback in every warp mode, the drawgrids CLI
 (against itself on the CPU), the kmeangrids cell-tree path over drawgrids'
 16,800 cell PNGs (equal to grid_cluster_stage) and the vectordistance CLI;
@@ -79,6 +86,10 @@ DRAWGRIDS_CPU_FRAMES = 3
 REALTIME_FRAMES = 75  # --max-frames of the realtime CLI on demo_out/601_3.avi
 SPATIAL_PAIRS = 4  # pairs of the clip the row-sharded flow runs on
 OPS_CMP_HW = (360, 640)  # Hough and SLIC card vs CPU at this size (the CPU side is slow at 720p)
+# sha256 of the JAX package's native (libjpeg-turbo) decode of
+# demo_out/601_3.avi, which the port's decoder reproduces (pinned also by
+# tests/test_torch_fastio.py).
+DEMO_NATIVE_SHA256 = "8211c98448d3e3118b9fe63779819b6f1e6e79aa5f1e188ae8c5d07e405a627e"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -209,6 +220,33 @@ def probe_phase(dev, stamp: str) -> list[dict]:
     ]
 
 
+# Ops on each probe body's loop-carried chain through `acc` per iteration
+# (kernels/csrc/probes.cu loop_probe_kernel: acc = acc + g(..., acc)): the
+# add, and for `where` the select of acc before it. Each waits for the last.
+PROBE_CHAIN_OPS = {"mul": 1, "where": 2, "take": 1, "take_bf16": 1, "two_takes": 1, "packed_take_unpack": 1}
+CHAIN_OP_CYCLES = 4  # dependent-issue latency of an FP32 add or select on sm_90
+
+
+def probe_chain_bounds(bodies: dict) -> dict:
+    """Each probe body's dependent-chain bound in ns per iteration: the ops
+    on its acc chain × their latency ÷ the card's max SM clock (nvidia-smi
+    clocks.max.sm), printed beside its time and its ALU bound."""
+    import subprocess
+
+    clocks = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=clocks.sm,clocks.max.sm",
+                             "--format=csv,noheader,nounits"], capture_output=True, text=True, check=True,
+                            timeout=60).stdout.split(",")
+    sm, max_sm = (float(c) for c in clocks)
+    bounds = {}
+    for body, b in bodies.items():
+        bounds[body] = PROBE_CHAIN_OPS[body] * CHAIN_OP_CYCLES * 1e3 / max_sm
+        print(f"bound loop_probe {body}: {PROBE_CHAIN_OPS[body]} op(s) on the acc chain x {CHAIN_OP_CYCLES} "
+              f"cycles / {max_sm:.0f} MHz (clocks.max.sm; clocks.sm {sm:.0f} MHz now) = {bounds[body]:.3f} "
+              f"ns/iter dependent-chain bound, beside ALU bound {b['bound_ns_per_iter']:.3f} and kernel "
+              f"{b['ns_per_iter']:.3f} ns/iter ({bounds[body] / b['ns_per_iter']:.1%} of the chain bound)")
+    return bounds
+
+
 def sync(dev) -> None:
     import torch
 
@@ -293,7 +331,7 @@ def stream_phase(dev, stamp: str, frames: np.ndarray, want: dict, cfg) -> dict:
         demo = "demo_out/601_3.avi"
         dec = io_video.read_video_bgr(demo, DEMO_FRAMES)
         kw.reset_launches()
-        got_demo = process_video_stream(demo, cfg, DEMO_FRAMES, dev)
+        got_demo = process_video_stream(demo, cfg, DEMO_FRAMES, device=dev)
         check(kw.LAUNCHES["warp_m"] > 0 and kw.LAUNCHES["box_solve"] > 0, "demo stream: kernels not launched")
         check_tables(got_demo, process_frames(dec, cfg, dev), "demo stream (cv2) vs process_frames")
         print(f"stream {demo} ({dec.shape[0]} frames, cv2 decode thread): tables equal to process_frames'")
@@ -470,6 +508,127 @@ def findcosine_phase(series: np.ndarray, start: int, length: int) -> None:
     check(sim >= 1 - 1e-6 and np.array_equal(series[frame : frame + length], sig),
           f"findcosine: similarity {sim} at frame {frame}, window planted at {start}")
     print(f"findcosine --device cuda: {' | '.join(lines)} (window planted at {start})")
+
+
+@contextlib.contextmanager
+def counted_decoders(pairs: dict):
+    """Count the pairs that reach process_video_stream through each decoder
+    (pairs[name] += n_valid per batch): the native one
+    (io.fastio.stream_mjpeg_avi) and cv2's (io.video.stream_video_chunks)."""
+    from opticalflowclustering_tpu_torch.io import fastio
+    from opticalflowclustering_tpu_torch.io import video as io_video
+
+    sources = {"native": (fastio, "stream_mjpeg_avi"), "cv2": (io_video, "stream_video_chunks")}
+    real = {name: getattr(module, attr) for name, (module, attr) in sources.items()}
+
+    def counting(name):
+        def gen(*args, **kwargs):
+            with contextlib.closing(real[name](*args, **kwargs)) as batches:
+                for batch, n_valid in batches:
+                    pairs[name] += n_valid
+                    yield batch, n_valid
+        return gen
+
+    try:
+        for name, (module, attr) in sources.items():
+            pairs[name] = 0
+            setattr(module, attr, counting(name))
+        yield pairs
+    finally:
+        for name, (module, attr) in sources.items():
+            setattr(module, attr, real[name])
+
+
+def native_decode_phase(dev, stamp: str, frames: np.ndarray, cfg) -> dict:
+    """Phase 5m: the native MJPEG decoder (io.fastio over the port's
+    native/fastio.cpp, built from the checkout with g++ alone) and its
+    stream. `frames` are written as an MJPG AVI and decoded with it beside
+    demo_out/601_3.avi, at 1 thread and at every core: the two give the same
+    bytes, the demo clip's frames hash to DEMO_NATIVE_SHA256 (the JAX
+    package's libjpeg decode, pinned by tests/test_torch_fastio.py), and both
+    clips are within 5 codes (mean < 1) of cv2's decode. Then
+    process_video_stream(native=True) in `cfg`'s mode, with its kernel
+    launches and the pairs through each decoder counted: its tables equal
+    process_frames' of the natively decoded frames on the card. Then decode
+    frames/s (native at every core and at 1 thread, cv2) on both clips, and
+    stream pairs/s native and cv2, in turns. Returns the native stream's
+    launches."""
+    import hashlib
+    import tempfile
+
+    from opticalflowclustering_tpu_torch.io import fastio
+    from opticalflowclustering_tpu_torch.io import video as io_video
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.pipeline.bounce import process_frames, process_video_stream
+
+    check(have_cv2(), "the native decoder's clip and its cv2 comparison need cv2, which is not importable")
+    cores = os.cpu_count() or 1
+    host = f"host {cores} cores ({len(os.sched_getaffinity(0))} usable)"
+    t0 = time.perf_counter()
+    check(fastio.available(), "the native decoder did not load")
+    print(f"native decoder: built with `{' '.join(fastio.build_command('<so>'))}` into {fastio.BUILD_DIR} "
+          f"in {time.perf_counter() - t0:.1f} s (no codec library); {host}")
+    n, h, w = frames.shape[:3]
+    with tempfile.TemporaryDirectory(prefix="ofc-native-") as tmp:
+        path = os.path.join(tmp, "clip.avi")
+        io_video.write_video_mjpg(path, frames, 30.0)
+        clips = {f"{w}x{h} clip": path, "demo_out/601_3.avi": "demo_out/601_3.avi"}
+        decoded = {}
+        for name, clip in clips.items():
+            one = fastio.decode_mjpeg_avi(clip, threads=1)
+            pooled = fastio.decode_mjpeg_avi(clip, threads=cores)
+            check(np.array_equal(one, pooled), f"{name}: 1 thread and {cores} threads decode differently")
+            ref = io_video.read_video_bgr(clip)
+            check(one.shape == ref.shape, f"{name}: native {one.shape} vs cv2 {ref.shape}")
+            gap = np.abs(one.astype(np.int16) - ref.astype(np.int16))
+            check(int(gap.max()) <= 5 and float(gap.mean()) < 1.0,
+                  f"{name}: native vs cv2 largest gap {int(gap.max())}, mean {float(gap.mean())}")
+            check(np.array_equal(io_video.read_video_bgr(clip, native=True), one), f"{name}: read_video_bgr(native=True)")
+            digest = hashlib.sha256(one.tobytes()).hexdigest()
+            print(f"native decode {name} {one.shape}: 1 and {cores} threads bitwise equal; vs cv2 largest gap "
+                  f"{int(gap.max())} codes, mean {float(gap.mean()):.4f} (contract <= 5, < 1); sha256 {digest}")
+            decoded[name] = one
+        demo = hashlib.sha256(decoded["demo_out/601_3.avi"].tobytes()).hexdigest()
+        check(demo == DEMO_NATIVE_SHA256, f"demo clip decodes to {demo}, not JAX's libjpeg decode {DEMO_NATIVE_SHA256}")
+        check(np.array_equal(decoded[f"{w}x{h} clip"], fastio.decode_mjpeg_avi(path)), "720p clip: default threads")
+
+        kw.reset_launches()
+        with counted_decoders({}) as pairs:
+            got = process_video_stream(path, cfg, None, True, device=dev)
+        sync(dev)
+        launches = dict(kw.LAUNCHES)
+        runs = kernel_runs(n - 1, cfg.chunk, h, w, cfg.flow)
+        check(launches == {"warp_m": runs, "box_solve": runs},
+              f"native stream: expected {runs} launches of each kernel, got {launches}")
+        check(pairs == {"native": n - 1, "cv2": 0}, f"native stream: pairs by decoder {pairs}, expected {n - 1} native")
+        rel = check_tables(got, process_frames(decoded[f"{w}x{h} clip"], dataclasses.replace(cfg, emit_flow_bgr=False), dev),
+                           "native stream vs process_frames of the native decode")
+        print(f"native stream {n}x{h}x{w} warp_mode={cfg.flow.warp_mode}: launches {launches} (design {runs}); "
+              f"{pairs['native'] + 1} frames through the native decoder, {pairs['cv2']} through cv2; tables equal to "
+              f"process_frames' of the natively decoded frames (integer tables bitwise, mean_magnitude rel diff {rel:.3g})")
+
+        for name, clip in clips.items():
+            count = decoded[name].shape[0]
+            decoders = {f"native {cores} threads": lambda clip=clip: fastio.decode_mjpeg_avi(clip, threads=cores),
+                        "native 1 thread": lambda clip=clip: fastio.decode_mjpeg_avi(clip, threads=1),
+                        "cv2": lambda clip=clip: io_video.read_video_bgr(clip)}
+            times = {k: [] for k in decoders}
+            for _ in range(REPEATS):
+                for k, fn in decoders.items():
+                    times[k].append(timed_s(dev, fn))
+            rates = ", ".join(f"{k} {count / float(np.median(v)):.1f}" for k, v in times.items())
+            print(f"time decode {name} ({count} frames {decoded[name].shape[2]}x{decoded[name].shape[1]}), frames/s: "
+                  f"{rates} (median of {REPEATS}, in turns; {host}) {stamp}")
+        streams = {"native": lambda: process_video_stream(path, cfg, None, True, device=dev),
+                   "cv2": lambda: process_video_stream(path, cfg, None, False, device=dev)}
+        times = {k: [] for k in streams}
+        for _ in range(REPEATS):
+            for k, fn in streams.items():
+                times[k].append(timed_s(dev, fn))
+        for k, ts in times.items():
+            print(f"time stream {n}x{h}x{w} {k} decode (decode included): {(n - 1) / float(np.median(ts)):.2f} pairs/s "
+                  f"(median of {REPEATS}, in turns, runs {', '.join(f'{t:.3f}' for t in ts)} s; {host}) {stamp}")
+    return launches
 
 
 def epe_phase(dev, stamp: str, frames: np.ndarray) -> int:
@@ -1715,6 +1874,7 @@ def main() -> int:
 
     # Phase 3b: the probe kernels and their scripts.
     probe_kernels = probe_phase(dev, stamp)
+    probe_chain_bounds(probe_kernels[0]["bodies"])
 
     # Phase 4: the slice, at 1280x720, through process_frames.
     frames = synth_frames(N, H, W)
@@ -1807,6 +1967,11 @@ def main() -> int:
     path_launches.update(queue_phase(dev, stamp, clips, fast))
     path_launches.update(temporal_phase(dev, np.stack([frames[:16], frames[16:32]]), fast))
     findcosine_phase(series.cpu().numpy(), 20, 5)
+
+    # Phase 5m: the native MJPEG decoder and its stream at 1280x720, the
+    # stream run with the launch counts set to 0 just before and read just
+    # after.
+    path_launches["native_stream"] = native_decode_phase(dev, stamp, frames, fast)
 
     # Phases 5n-5q: EPE against cv2 and the grid CLIs at 1280x720, each run
     # with the launch counts set to 0 just before and read just after.

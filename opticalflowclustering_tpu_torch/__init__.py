@@ -26,7 +26,10 @@ Layout (mirrors the JAX package):
               torch.distributed
   extras/     colour quantization, non-maximum suppression
   io/         video decode and encode on the host, the prefetch thread,
-              the real-time VideoStream, image-tree readers
+              the real-time VideoStream, image-tree readers, and the ctypes
+              boundary to the native decoder (fastio)
+  native/     the C++ host-IO runtime (MJPEG-AVI and PNG decode with no
+              codec library), built with g++ at first use
   compat/     byte-compatible CSV writers
   cli/        kmeangrids, computeopticalflow, findcosine, processqueue,
               colorkmeans, classify, detect, realtime, trainbounce,

@@ -117,7 +117,7 @@ def main(argv=None):
         if args["stream"]:
             if overlays is not None:
                 raise SystemExit("--stream is feature-only; pass --noyolo --nocontour")
-            out = process_video_stream(args["path"], cfg, args["max_frames"], args["device"])
+            out = process_video_stream(args["path"], cfg, args["max_frames"], device=args["device"])
         else:
             frames = read_video_bgr(args["path"], args["max_frames"])
             out = process_frames(frames, cfg, args["device"], overlays=overlays)

@@ -6,9 +6,11 @@ uint8 array (`read_video_bgr`) or chunk by chunk on a background thread
 previous chunk. Encode mirrors `cv2.VideoWriter` with the reference's MJPG
 fourcc (`computeOpticalFlow.py:27-33`). cv2 is imported inside the functions
 that decode or encode, so importing this module loads neither cv2 nor any
-part of the JAX package. The JAX package's `native=True` branch (its C++
-MJPEG decoder, whose rounding differs from cv2's) has no counterpart here.
-`VideoStream` is the real-time demo's paced threaded source.
+part of the JAX package. `native=True` sends an MJPEG AVI to the port's
+threaded C++ decoder (`io.fastio`, no codec library; its frames are the JAX
+package's native decoder's and differ from cv2's by a few codes) and every
+other file to cv2. `VideoStream` is the real-time demo's paced threaded
+source.
 """
 
 from __future__ import annotations
@@ -54,9 +56,22 @@ def _cv2_frames(path: str, max_frames: int | None) -> Iterator[np.ndarray]:
         cap.release()
 
 
-def read_video_bgr(path: str, max_frames: int | None = None) -> np.ndarray:
+def read_video_bgr(path: str, max_frames: int | None = None, native: bool = False) -> np.ndarray:
     """Decode a video file with cv2 → [N, H, W, 3] uint8 BGR frames (at most
-    `max_frames`)."""
+    `max_frames`).
+
+    native=True decodes an MJPEG AVI with the threaded C++ decoder
+    (`io.fastio.decode_mjpeg_avi`) instead: its JPEG rounding differs from
+    cv2's by up to 5 codes (mean < 1), so golden-parity paths keep cv2. The
+    gate is the JAX package's: the 12-byte RIFF sniff, then the full container
+    and codec probe. A file that fails either (an mp4, an XVID AVI) decodes
+    with cv2; an MJPEG AVI decodes natively or raises (a decoder that does
+    not build raises RuntimeError)."""
+    if native:
+        from opticalflowclustering_tpu_torch.io import fastio
+
+        if fastio.is_mjpeg_avi(path) and fastio.probe_mjpeg_avi(path):
+            return fastio.decode_mjpeg_avi(path, max_frames)
     frames = list(_cv2_frames(path, max_frames))
     if not frames:
         raise ValueError(f"no frames decoded from {path}")

@@ -4,8 +4,9 @@ probe path loads neither jax nor cv2 nor pandas, its video decode equals the
 JAX package's and loads no module of it, the state it carries
 across from the JAX package (configs, constant tables) equals the original
 (opticalflowclustering_tpu_torch.convert ↔ the JAX modules that build the
-tables), and chip_smoke.py's probe phase runs end to end on the CPU with its
-kernel entries replaced by counted plain versions."""
+tables), the native decoder needs no codec library, and chip_smoke.py's
+phases run end to end on the CPU with the kernel entries replaced by counted
+plain versions."""
 
 import ast
 import dataclasses
@@ -157,7 +158,7 @@ def test_port_sources_import_nothing_of_jax(tmp_path):
                 "parallel/spatial.py", "graft_entry.py", "extras/cluster_viz.py", "extras/compare_images.py",
                 "extras/histograms.py", "extras/compare_histograms.py", "extras/color_transfer.py",
                 "extras/search_engine.py", "extras/detectors.py", "extras/document_scanner.py", "extras/pokedex.py",
-                "cli/scan.py", "cli/searchengine.py"):
+                "cli/scan.py", "cli/searchengine.py", "io/fastio.py"):
         assert os.path.join(port, rel) in sources, rel
     bad = {os.path.relpath(p, REPO): f for p in sources if (f := _foreign_imports(p))}
     assert bad == {}
@@ -746,4 +747,55 @@ def test_chip_smoke_spatial_dryrun_extras_phases_rehearsal(monkeypatch, capsys):
                 "scan: wrote cuda_warped.png cuda_binarized.png", "searchengine: index of 32 and search -k 5",
                 "color_transfer: 0 of ", "skin_mask, locate_barcode (box", "find_screen: a ",
                 "time extras on the card, 128x336"):
+        assert tag in out, tag
+
+
+# What native/fastio.cpp may include: C++ standard headers and two POSIX ones.
+_NATIVE_HEADERS = {"sys/stat.h", "pthread.h", "algorithm", "atomic", "cstddef", "cstdint", "cstdio", "cstdlib",
+                   "cstring", "map", "mutex", "string", "thread", "utility", "vector"}
+
+
+def test_native_decoder_needs_no_codec_library():
+    """native/fastio.cpp includes only C++ standard headers and <sys/stat.h>
+    / <pthread.h> (no jpeglib.h, png.h, zlib.h), its build command links no
+    library, and the library it builds depends on no libjpeg, libpng or
+    libz."""
+    from opticalflowclustering_tpu_torch.io import fastio
+
+    src = fastio.SRC.read_text()
+    includes = [line.split("<", 1)[1].split(">", 1)[0] for line in src.splitlines()
+                if line.startswith("#include")]
+    assert includes and set(includes) <= _NATIVE_HEADERS, includes
+    assert '#include "' not in src
+    cmd = fastio.build_command("out.so")
+    assert cmd[0] == "g++" and not [a for a in cmd if a.startswith("-l")], cmd
+    deps = subprocess.run(["ldd", str(fastio._build())], capture_output=True, text=True, timeout=60).stdout
+    assert "libstdc++" in deps
+    assert not any(lib in deps for lib in ("libjpeg", "libturbojpeg", "libpng", "libz")), deps
+
+
+def test_chip_smoke_native_decode_phase_rehearsal(monkeypatch, capsys):
+    """chip_smoke.native_decode_phase on the CPU on a 7-frame 288×512 clip at
+    chunk 4: the decoder builds, the clip and the demo clip decode the same
+    at 1 thread and at every core, the demo clip to its pinned digest,
+    the native stream's launches are 2 chunks × 4 levels × 3 iterations, all
+    its 6 pairs came through the native decoder (none through cv2), and
+    both decoders and both streams are timed; the decoders are put back."""
+    from opticalflowclustering_tpu_torch.io import fastio
+    from opticalflowclustering_tpu_torch.io import video as io_video
+    from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
+
+    chip_smoke, bounce, _ = _rehearse_on_cpu(monkeypatch)
+    real = (fastio.stream_mjpeg_avi, io_video.stream_video_chunks)
+    cfg = bounce.PipelineConfig(chunk=4, flow=bounce.FarnebackParams(warp_mode="fast"))
+    launches = chip_smoke.native_decode_phase(torch.device("cpu"), "[cpu rehearsal]", synth_frames(7, 288, 512), cfg)
+    assert launches == {"warp_m": 24, "box_solve": 24}
+    assert (fastio.stream_mjpeg_avi, io_video.stream_video_chunks) == real
+    out = capsys.readouterr().out
+    for tag in ("native decoder: built with `g++ -O3 -shared -fPIC -std=c++17 -pthread",
+                f"native decode demo_out/601_3.avi (75, 232, 220, 3): 1 and {os.cpu_count()} threads bitwise equal",
+                f"sha256 {chip_smoke.DEMO_NATIVE_SHA256}", "7 frames through the native decoder, 0 through cv2",
+                "time decode 512x288 clip (7 frames 512x288), frames/s: native",
+                "time decode demo_out/601_3.avi (75 frames 220x232), frames/s: native",
+                "time stream 7x288x512 native decode", "time stream 7x288x512 cv2 decode"):
         assert tag in out, tag
