@@ -31,7 +31,10 @@ tp=4 mesh of the card with box_solve on every block (its tables equal to the
 unsharded pipeline's, its launches counted), the dryrun entry's six passes
 and its forward step, and the extras (scan and searchengine CLIs,
 color_transfer, skin_mask, locate_barcode, brightest_spot, find_screen with
-a Zernike descriptor) against the CPU; then the clustering and model
+a Zernike descriptor) against the CPU; the legacy 'select' warp (plain
+PyTorch, no kernel launched) against the CPU on the 720p clip and on
+demo_out/601_3.avi, its EPE against exact and cv2, and process_frames'
+pairs/s and peak memory in 'select' beside 'fast'; then the clustering and model
 paths at 1280x720, each against the same function on the CPU: kmeans_batched
 over the 16,800 cells of the rendered flow frames, quantize_colors, the
 colorkmeans CLI, FlowCellNet serving (detect_windows on every frame, the
@@ -86,6 +89,7 @@ DRAWGRIDS_CPU_FRAMES = 3
 REALTIME_FRAMES = 75  # --max-frames of the realtime CLI on demo_out/601_3.avi
 SPATIAL_PAIRS = 4  # pairs of the clip the row-sharded flow runs on
 OPS_CMP_HW = (360, 640)  # Hough and SLIC card vs CPU at this size (the CPU side is slow at 720p)
+SELECT_CARD_CPU_EPE = 1e-3  # px, mean: the 'select' flow on the card vs the CPU (phase 4's bound)
 # sha256 of the JAX package's native (libjpeg-turbo) decode of
 # demo_out/601_3.avi, which the port's decoder reproduces (pinned also by
 # tests/test_torch_fastio.py).
@@ -1218,7 +1222,7 @@ def dryrun_phase(dev, stamp: str) -> dict:
     t0 = time.perf_counter()
     got = graft_entry.dryrun_multichip(4, devices=[dev] * 4)
     t = time.perf_counter() - t0
-    sp1 = FarnebackParams(levels=1)
+    sp1 = FarnebackParams(levels=1, warp_radius=8)
     fast_runs = (4 + 1) * kernel_runs(1, 1, 512, 128, fast)  # 4 blocks, then the unsharded flow
     design = {"1": (0, 0), "1.5": (0, spatial_runs(192, 96, 4, sp1)), "1.6": (0, spatial_runs(720, 96, 4, sp1)),
               "1.7": (0, spatial_runs(192, 96, 4, sp1)), "1.75": (fast_runs, fast_runs), "2": (0, 0)}
@@ -1383,6 +1387,85 @@ def spatial_dryrun_extras_phases(dev, stamp: str, frames: np.ndarray) -> dict:
         sync(dev)
         launches["extras"] = dict(kw.LAUNCHES)
     check(launches["extras"] == {"warp_m": 0, "box_solve": 0}, f"extras launched {launches['extras']}")
+    return launches
+
+
+def select_phase(dev, stamp: str, frames: np.ndarray) -> dict:
+    """Phase 5w: the legacy 'select' warp (FarnebackParams(warp_mode=
+    'select'), warp_radius 32), which runs no kernel on any device. On 4
+    pairs of `frames` and 4 pairs of real footage (demo_out/601_3.avi frames
+    30-34): the card's flow within mean EPE SELECT_CARD_CPU_EPE of the
+    port's CPU flow of the same pairs (the bound of the card-vs-CPU check of
+    phase 4), no launch of warp_m or box_solve, and the mean EPE against the
+    exact flow and against cv2.calcOpticalFlowFarneback printed (not gated:
+    'select' is inexact by contract). Then process_frames in 'select' and
+    'fast' over `frames`, in turns, median of REPEATS: pairs/s of each and
+    the peak allocated device memory of each, the 'select' runs launching
+    no kernel. Returns the launches by path."""
+    import cv2
+    import torch
+
+    from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams, farneback_flow
+    from opticalflowclustering_tpu_torch.io import video as io_video
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
+    from opticalflowclustering_tpu_torch.pipeline.bounce import PipelineConfig, process_frames
+
+    select, zero = FarnebackParams(warp_mode="select"), {"warp_m": 0, "box_solve": 0}
+    clips = {"synthetic": (f"synthetic {frames.shape[2]}x{frames.shape[1]}", frames[:5]),
+             "demo": ("demo_out/601_3.avi 220x232", io_video.read_video_bgr("demo_out/601_3.avi", 35)[30:35])}
+    launches = {}
+
+    def epe(a, b):
+        return float(torch.linalg.vector_norm(a - b, dim=-1).mean())
+
+    for key, (name, clip) in clips.items():
+        gray = bgr2gray(torch.from_numpy(clip))
+        g = gray.to(dev)
+        kw.reset_launches()
+        got = farneback_flow(g[:-1], g[1:], select)
+        sync(dev)
+        path = f"select_flow_{key}"
+        launches[path] = dict(kw.LAUNCHES)
+        check(launches[path] == zero, f"select flow {name} launched {launches[path]}")
+        got = got.cpu()
+        cpu = farneback_flow(gray[:-1], gray[1:], select)
+        e_cpu = epe(got, cpu)
+        check(bool(torch.isfinite(got).all()) and e_cpu <= SELECT_CARD_CPU_EPE,
+              f"select flow {name}: card vs CPU mean EPE {e_cpu} (bound {SELECT_CARD_CPU_EPE})")
+        exact = farneback_flow(g[:-1], g[1:], FarnebackParams(warp_mode="exact")).cpu()
+        want = torch.from_numpy(np.stack([cv2.calcOpticalFlowFarneback(
+            gray[i].numpy(), gray[i + 1].numpy(), None, 0.5, 3, 15, 3, 5, 1.2, 0) for i in range(4)]))
+        print(f"select flow, 4 pairs of {name} (max |flow| {float(got.abs().max()):.1f} px): card vs CPU mean EPE "
+              f"{e_cpu:.3g} px (bound {SELECT_CARD_CPU_EPE:g}), bitwise {torch.equal(got, cpu)}; launches "
+              f"{launches[path]}; mean EPE, not gated: vs exact {epe(got, exact):.3g} px, vs cv2 "
+              f"{cv2.__version__} {epe(got, want):.3g} px {stamp}")
+
+    cfgs = {m: PipelineConfig(emit_flow_bgr=False, flow=FarnebackParams(warp_mode=m)) for m in ("select", "fast")}
+    kw.reset_launches()
+    out = process_frames(frames, cfgs["select"], device=dev)  # also the warm-up
+    sync(dev)
+    launches["select_process_frames"] = dict(kw.LAUNCHES)
+    check(launches["select_process_frames"] == zero, f"select process_frames launched {kw.LAUNCHES}")
+    n_pairs = frames.shape[0] - 1
+    check(out["hue_table"].shape == (n_pairs, 350) and np.isfinite(out["mean_magnitude"]).all()
+          and float(out["mean_magnitude"].max()) > 0.01, "select process_frames: tables wrong or no motion")
+    process_frames(frames, cfgs["fast"], device=dev)
+    times, peak = {m: [] for m in cfgs}, {}
+    for _ in range(REPEATS):
+        for m, cfg in cfgs.items():
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            times[m].append(timed_s(dev, lambda cfg=cfg: process_frames(frames, cfg, device=dev)))
+            if dev.type == "cuda":
+                peak[m] = max(peak.get(m, 0), torch.cuda.max_memory_allocated(dev))
+    parts = []
+    for m, ts in times.items():
+        mem = f"{peak[m] / 2**30:.3f} GiB" if m in peak else "not measured (no card)"
+        parts.append(f"{m} {n_pairs / float(np.median(ts)):.2f} pairs/s (runs {', '.join(f'{t:.3f}' for t in ts)} s; "
+                     f"peak allocated {mem})")
+    print(f"time process_frames {frames.shape[0]}x{frames.shape[1]}x{frames.shape[2]} chunk 16, tables only, median "
+          f"of {REPEATS} in turns: {'; '.join(parts)}; select launches {launches['select_process_frames']} {stamp}")
     return launches
 
 
@@ -1987,6 +2070,11 @@ def main() -> int:
     # 1280x720, each run with the launch counts set to 0 just before and
     # read just after.
     path_launches.update(spatial_dryrun_extras_phases(dev, stamp, frames))
+
+    # Phase 5w: the 'select' warp (plain PyTorch, no kernel) at 1280x720
+    # and on real footage, each run with the launch counts set to 0 just
+    # before and read just after.
+    path_launches.update(select_phase(dev, stamp, frames))
 
     # Phases 5f-5l: the clustering and model paths at 1280x720, each run
     # with the launch counts set to 0 just before and read just after.

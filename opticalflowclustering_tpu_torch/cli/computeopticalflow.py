@@ -2,7 +2,7 @@
 `opticalflowclustering_tpu/cli/computeopticalflow.py`, mirroring
 `k-means-color-clustering/computeOpticalFlow.py`):
 
-  -i video [--max-frames N] [--warp-mode fast|fast16|exact] [--device cuda|cpu]
+  -i video [--max-frames N] [--warp-mode fast|fast16|exact|select] [--device cuda|cpu]
 
 Writes `<input>onlyOpticalflow.mp4` (the rendered flow, MJPG),
 `<input>_opticalFlow.csv` (mean |flow| per pair) and, where matplotlib is
@@ -23,11 +23,13 @@ def main(argv=None):
     ap.add_argument("--max-frames", type=int, default=None)
     ap.add_argument(
         "--warp-mode",
-        choices=("fast", "fast16", "exact"),
+        choices=("fast", "fast16", "exact", "select"),
         default="fast",
         help="flow-warp implementation: 'fast' runs the warp+M and box-solve "
         "CUDA kernels on the card; 'fast16' the same with R1 rounded through "
-        "bf16; 'exact' the plain PyTorch warp",
+        "bf16; 'exact' the plain PyTorch warp; 'select' the legacy separable "
+        "warp in plain PyTorch, INEXACT at motion discontinuities, kept for "
+        "comparison only",
     )
     ap.add_argument(
         "--device",

@@ -3,7 +3,7 @@
 `k-means-color-clustering/KmeanGrids.py`, usage `KmeanGrids.py:406`):
 
   -d OutImgs/<video> -c 1 -f addnew.csv --noyolo --nocontour --path <video>
-  [--device cuda|cpu] [--warp-mode fast|fast16|exact] [--stream]
+  [--device cuda|cpu] [--warp-mode fast|fast16|exact|select] [--stream]
 
 Writes `OutCSV/<video>.csv` (hue table) and appends the per-cell rows to the
 -f CSV in the addnew.csv format. With a video at `--path` it runs flow, grid
@@ -56,11 +56,13 @@ def parse_arguments(argv=None):
     )
     ap.add_argument(
         "--warp-mode",
-        choices=("fast", "fast16", "exact"),
+        choices=("fast", "fast16", "exact", "select"),
         default="fast",
         help="flow-warp implementation: 'fast' runs the warp+M and box-solve "
         "CUDA kernels on the card; 'fast16' the same with R1 rounded through "
-        "bf16; 'exact' the plain PyTorch warp",
+        "bf16; 'exact' the plain PyTorch warp; 'select' the legacy separable "
+        "warp in plain PyTorch, INEXACT at motion discontinuities, kept for "
+        "comparison only",
     )
     ap.add_argument(
         "--device",

@@ -35,15 +35,10 @@ from opticalflowclustering_tpu_torch.ops.filters import gaussian_kernel
 from opticalflowclustering_tpu_torch.ops.resize import _linear_weight_matrix
 from opticalflowclustering_tpu_torch.pipeline.bounce import PipelineConfig
 
-# JAX-only fields with no counterpart in the port: the legacy 'select' warp's
-# radius (the port has no 'select' mode; FarnebackParams rejects it).
-_DROPPED = {"FarnebackParams": {"warp_radius"}}
-
-
 def _carry(cfg, cls):
     names = {f.name for f in dataclasses.fields(cls)}
     src = {f.name for f in dataclasses.fields(cfg)}
-    unknown = src - names - _DROPPED.get(cls.__name__, set())
+    unknown = src - names
     if unknown:
         raise ValueError(f"{type(cfg).__name__} fields with no port: {sorted(unknown)}")
     return {n: getattr(cfg, n) for n in names & src}

@@ -17,8 +17,8 @@ channel-last [..., H, W, 2].
 For warp modes 'fast' and 'fast16' with the box window (winsize ≤ 17), the
 warp+M and box-solve steps go through `kernels.warp.warp_m` / `box_solve`:
 the hand-written CUDA kernels for a CUDA tensor, their plain versions for a
-CPU tensor. Every other configuration ('exact', the Gaussian window, wider
-windows) runs the plain PyTorch steps on the caller's device.
+CPU tensor. Every other configuration ('exact', 'select', the Gaussian
+window, wider windows) runs the plain PyTorch steps on the caller's device.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ _MIN_SIZE = 32  # OpenCV: pyramid levels stop below 32 px on either side
 _BORDER = 5
 # OpenCV FarnebackUpdateMatrices edge taper.
 _BORDER_SCALE = np.array([0.14, 0.14, 0.4472, 0.4472, 0.4472], dtype=np.float32)
-_WARP_MODES = ("exact", "fast", "fast16")
+_WARP_MODES = ("exact", "fast", "fast16", "select")
 # The box-solve kernel stages a halo of at most 8 rows/columns.
 MAX_KERNEL_WINSIZE = 17
 
@@ -58,6 +58,16 @@ class FarnebackParams:
                  applies), run by the warp+M and box-solve CUDA kernels on
                  the card. The CLI default.
       'fast16' — 'fast' with R1's channels 0–3 rounded through bf16.
+      'select' — the legacy separable warp (`_warp_select`): a vertical
+                 then a horizontal bilinear sample, each from the integer
+                 offset clamped to ±warp_radius (halved per pyramid level,
+                 floor 8), and the reach masks |y1−y| ≤ warp_radius−1,
+                 |x1−x| ≤ 126. Exact for displacements within
+                 ±warp_radius whose integer part is locally smooth;
+                 inexact at motion discontinuities (the vertical sample
+                 read at column x1 used the flow of (y, x1), not (y, x)).
+                 Kept for comparison; plain PyTorch on every device.
+    warp_radius: 'select' only — the offset clamp at the finest level.
     """
 
     pyr_scale: float = 0.5
@@ -68,6 +78,7 @@ class FarnebackParams:
     poly_sigma: float = 1.2
     gaussian_win: bool = False  # OPTFLOW_FARNEBACK_GAUSSIAN
     warp_mode: str = "exact"
+    warp_radius: int = 32  # 'select' mode only
 
     def __post_init__(self):
         if self.warp_mode not in _WARP_MODES:
@@ -230,6 +241,39 @@ def _warp_gather(
     )
 
 
+def _warp_select(
+    r1: torch.Tensor, y1i: torch.Tensor, x1i: torch.Tensor, fx, fy, radius: int
+) -> torch.Tensor:
+    """The 'select' warp of channel-first r1 [..., C, H, W] (the reference's
+    shifted-copy where-chains, `flow/farneback.py:264-298`, as two clamped
+    gathers): a vertical bilinear sample at the integer row offset
+    clamp(y1i − y, −radius, radius−1) with fraction fy, then a horizontal
+    one of that result at clamp(x1i − x, −radius, radius−1) with fx. Rows
+    and columns beyond the image repeat the edge (the reference's edge pad).
+    y1i, x1i: int32 [..., H, W]; fx, fy: [..., H, W]."""
+    c, h, w = r1.shape[-3], r1.shape[-2], r1.shape[-1]
+    dev = r1.device
+    lead = tuple(y1i.shape[:-2])
+    ys = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    xs = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+
+    def taps(pos, n, dim, src):
+        """src at pos and pos + 1 along dim, each clamped to [0, n)."""
+        def at(p):
+            idx = p.clamp(0, n - 1).to(torch.int64).unsqueeze(-3)
+            return torch.gather(src, dim, idx.expand(lead + (c, h, w)))
+
+        return at(pos), at(pos + 1)
+
+    a0, a1 = taps(ys + torch.clamp(y1i - ys, -radius, radius - 1), h, -2, r1)
+    fye = fy.unsqueeze(-3)
+    av = a0 * (1 - fye) + a1 * fye
+    del a0, a1
+    b0, b1 = taps(xs + torch.clamp(x1i - xs, -radius, radius - 1), w, -1, av)
+    fxe = fx.unsqueeze(-3)
+    return b0 * (1 - fxe) + b1 * fxe
+
+
 def _m_build(r0c, r1wc, dx, dy, inb, taper):
     """Normal-equation products from warped coefficients, in the
     reference's op order (`flow/farneback.py:299-329`); the CUDA warp+M
@@ -260,10 +304,14 @@ def _m_build(r0c, r1wc, dx, dy, inb, taper):
     )
 
 
-def _update_matrices(r0, r1, dx, dy, reach: tuple[int, int] | None):
+def _update_matrices(
+    r0, r1, dx, dy, reach: tuple[int, int] | None, select_radius: int | None = None
+):
     """M = [G11, G12, G22, h1, h2] [..., 5, H, W] from channel-first r0, r1
     and the flow planes dx, dy [..., H, W]. `reach` = (ry, rx) adds the
-    kernels' reach masks |y1−y| ≤ ry, |x1−x| ≤ rx to the in-bounds test."""
+    reach masks |y1−y| ≤ ry, |x1−x| ≤ rx to the in-bounds test; with
+    `select_radius` R1 is warped by `_warp_select` instead of the exact
+    bilinear gather."""
     h, w = dx.shape[-2], dx.shape[-1]
     dev = dx.device
     ys = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
@@ -276,10 +324,12 @@ def _update_matrices(r0, r1, dx, dy, reach: tuple[int, int] | None):
     fy = gy - y1
     x1i = x1.to(torch.int32)
     y1i = y1.to(torch.int32)
-    x1c = torch.clamp(x1i, 0, w - 2)
-    y1c = torch.clamp(y1i, 0, h - 2)
-
-    r1w = _warp_gather(r1, y1c, x1c, fx, fy)
+    if select_radius is None:
+        x1c = torch.clamp(x1i, 0, w - 2)
+        y1c = torch.clamp(y1i, 0, h - 2)
+        r1w = _warp_gather(r1, y1c, x1c, fx, fy)
+    else:
+        r1w = _warp_select(r1, y1i, x1i, fx, fy, select_radius)
 
     inb = (x1i >= 0) & (x1i <= w - 2) & (y1i >= 0) & (y1i <= h - 2)
     if reach is not None:
@@ -295,6 +345,7 @@ def update_matrices(
     dx: torch.Tensor,
     dy: torch.Tensor,
     warp_mode: str = "exact",
+    warp_radius: int = 32,
 ) -> torch.Tensor:
     """The local-system tensor M [..., 5, H, W] (plain PyTorch).
 
@@ -302,7 +353,10 @@ def update_matrices(
     (bilinear, OpenCV's out-of-bounds fallback), averages the quadratic
     coefficients, forms the normal equations of A·d = Δb and tapers the
     5-px border. 'fast'/'fast16' use the kernels' reach masks (their plain
-    version, `kernels.warp.warp_m_reference`)."""
+    version, `kernels.warp.warp_m_reference`); 'select' warps by
+    `_warp_select` at `warp_radius` and sends displacements beyond
+    |y1−y| ≤ warp_radius−1 or |x1−x| ≤ 126 to the out-of-bounds fallback
+    (the reference's `update_matrices`, `flow/farneback.py:377-390`)."""
     if warp_mode in ("fast", "fast16"):
         from opticalflowclustering_tpu_torch.kernels.warp import (
             quantize_r1_fast16,
@@ -312,6 +366,10 @@ def update_matrices(
         if warp_mode == "fast16":
             r1 = quantize_r1_fast16(r1)
         return warp_m_reference(r0, r1, dx, dy)
+    if warp_mode == "select":
+        return _update_matrices(
+            r0, r1, dx, dy, reach=(warp_radius - 1, 126), select_radius=warp_radius
+        )
     return _update_matrices(r0, r1, dx, dy, reach=None)
 
 
@@ -401,7 +459,7 @@ def farneback_flow(
         from opticalflowclustering_tpu_torch.kernels import warp as kw
 
     fx = fy = None
-    for _, h_k, w_k, sigma in plan:
+    for k, h_k, w_k, sigma in plan:
         smooth_sz = max(_cvround(sigma * 5) | 1, 3)
         r0, r1 = (
             poly_expansion(
@@ -436,11 +494,15 @@ def farneback_flow(
                 if i < params.iterations - 1:
                     m = kw.warp_m(r0, r1, fx, fy)
         else:
-            m = update_matrices(r0, r1, fx, fy, params.warp_mode)
+            # Level-k flow is in level-k pixels (≈ motion / 2^k): the select
+            # warp's radius halves per level, floor 8 (the reference's
+            # `flow/farneback.py:536-548`).
+            radius_k = max(8, params.warp_radius >> k)
+            m = update_matrices(r0, r1, fx, fy, params.warp_mode, radius_k)
             for i in range(params.iterations):
                 fx, fy = _update_flow(m, params.winsize, params.gaussian_win)
                 if i < params.iterations - 1:
-                    m = update_matrices(r0, r1, fx, fy, params.warp_mode)
+                    m = update_matrices(r0, r1, fx, fy, params.warp_mode, radius_k)
     return torch.stack([fx, fy], dim=-1).reshape(lead + (h, w, 2))
 
 

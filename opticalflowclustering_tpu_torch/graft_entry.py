@@ -138,14 +138,13 @@ def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda", device
 
     # --- pass 1.5: spatial tensor parallelism (row-sharded Farneback) ---
     tp_mesh = make_mesh({"tp": n_devices}, devs)
-    sp_params = FarnebackParams(levels=1)
-    radius = 8
+    sp_params = FarnebackParams(levels=1, warp_radius=8)
     h_tp = n_devices * 48  # > the 38-row halo per shard at these params
     rng = np.random.default_rng(2)
     prev = rng.integers(0, 256, size=(h_tp, 96), dtype=np.uint8)
     nxt = rng.integers(0, 256, size=(h_tp, 96), dtype=np.uint8)
     ref_flow = farneback_flow(gray(prev), gray(nxt), sp_params)
-    tp_flow = spatial_farneback_flow(prev, nxt, tp_mesh, "tp", sp_params, warp_radius=radius)
+    tp_flow = spatial_farneback_flow(prev, nxt, tp_mesh, "tp", sp_params)
     sp_diff = float((ref_flow - tp_flow.to(home)).abs().max())
     assert sp_diff <= 5e-5, f"spatial TP diverges: max abs {sp_diff}"
     done("1.5", f"dryrun_multichip: spatial TP ok (max |Δ| {sp_diff:.1e} px) — {h_tp}-row frame across "
@@ -156,7 +155,7 @@ def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda", device
     rng = np.random.default_rng(5)
     prev_p = rng.integers(0, 256, size=(h_pad, 96), dtype=np.uint8)
     nxt_p = rng.integers(0, 256, size=(h_pad, 96), dtype=np.uint8)
-    tp_pad = spatial_farneback_flow_padded(prev_p, nxt_p, tp_mesh, "tp", sp_params, warp_radius=radius).to(home)
+    tp_pad = spatial_farneback_flow_padded(prev_p, nxt_p, tp_mesh, "tp", sp_params).to(home)
     assert tuple(tp_pad.shape) == (h_pad, 96, 2), tuple(tp_pad.shape)
     ref_pad = farneback_flow(gray(prev_p), gray(nxt_p), sp_params)
     # away from the bottom border the replicate-pad is invisible
@@ -169,8 +168,7 @@ def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda", device
 
     # --- pass 1.7: the spatially sharded hue pipeline ---
     hue_grid = GridParams(4, 4)
-    hue_t, rgb_hue_t, cen_t, mm_t = spatial_hue_pipeline(prev, nxt, tp_mesh, "tp", hue_grid, sp_params,
-                                                         warp_radius=radius)
+    hue_t, rgb_hue_t, cen_t, mm_t = spatial_hue_pipeline(prev, nxt, tp_mesh, "tp", hue_grid, sp_params)
     bgr_ref = render_flow_hsv_bgr(farneback_flow(gray(prev), gray(nxt), sp_params))
     cen_ref, hue_ref = dominant_hue_k1_frames(bgr_ref, hue_grid)
     rgb_ref = grid_mean_hue(bgr_ref, hue_grid)

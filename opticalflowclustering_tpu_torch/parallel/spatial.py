@@ -32,7 +32,7 @@ unsharded flow and OpenCV):
      two globally clamped boundary rows on the edge blocks.
 
 Exactness: while the vertical displacement at level k stays within
-`reach_k = max(8, warp_radius >> k)` rows (beyond the exchanged halo the
+`reach_k = max(8, params.warp_radius >> k)` rows (beyond the exchanged halo the
 warp applies OpenCV's out-of-image fallback, which the unsharded flow
 applies only at the image border), every owned row sees the same float32
 operations on the same inputs as the unsharded exact-mode
@@ -40,10 +40,6 @@ operations on the same inputs as the unsharded exact-mode
 to its plain version, so the sharded flow is bitwise equal to the unsharded
 one. The flow is always the exact warp, whatever `params.warp_mode` says,
 and the window is always the box (as in the JAX package).
-
-`warp_radius` (default 32, the JAX package's `FarnebackParams.warp_radius`)
-is a keyword of the entry points here: the port's FarnebackParams has no
-such field, since nothing else reads it.
 
 H must divide by n_shards · 2^levels, so every level splits evenly and the
 sample grids of block-local resizes align with the global grid;
@@ -211,12 +207,12 @@ def _upsample_flow_rows(blocks: list[torch.Tensor], w_dst: int, halo: int = 4) -
 # ---------------------------------------------------------------------------
 
 
-def _level_margins(params: FarnebackParams, warp_radius: int = 32) -> dict[int, tuple[int, int, int]]:
+def _level_margins(params: FarnebackParams) -> dict[int, tuple[int, int, int]]:
     """Per level k: (warp reach, level margin, full-resolution halo)."""
     out = {}
     mhalf = params.winsize // 2
     for k in range(params.levels + 1):
-        reach = max(8, warp_radius >> k)
+        reach = max(8, params.warp_radius >> k)
         marg = mhalf + params.poly_n // 2 + reach + 1  # r1 rows the warp reads
         scale = params.pyr_scale**k
         sigma = (1.0 / scale - 1.0) * 0.5
@@ -229,12 +225,12 @@ def _level_margins(params: FarnebackParams, warp_radius: int = 32) -> dict[int, 
     return out
 
 
-def _check_shard_geometry(h: int, w: int, n_dev: int, params: FarnebackParams, warp_radius: int = 32) -> None:
+def _check_shard_geometry(h: int, w: int, n_dev: int, params: FarnebackParams) -> None:
     """The rows must split evenly across the blocks at every pyramid level,
     and a block must be taller than the largest full-resolution halo."""
     if h % (n_dev * 2**params.levels):
         raise ValueError(f"H={h} must divide by n_shards*2^levels={n_dev * 2**params.levels}")
-    margins = _level_margins(params, warp_radius)
+    margins = _level_margins(params)
     max_full = max(margins[k][2] for k, *_ in pyramid_plan(h, w, params))
     if h // n_dev <= max_full:
         raise ValueError(
@@ -267,11 +263,10 @@ def _shard_flow(
     params: FarnebackParams,
     h: int,
     w: int,
-    warp_radius: int,
 ) -> list[torch.Tensor]:
     """The flow of each block's own rows, [B, 2, h_loc, W] on its device."""
     plan = pyramid_plan(h, w, params)
-    margins = _level_margins(params, warp_radius)
+    margins = _level_margins(params)
     mhalf = params.winsize // 2
     n_dev = len(prev_blocks)
     last = n_dev - 1
@@ -347,20 +342,19 @@ def spatial_farneback_flow(
     mesh: Mesh,
     axis_name: str = "tp",
     params: FarnebackParams = FarnebackParams(),
-    warp_radius: int = 32,
 ) -> torch.Tensor:
     """farneback_flow with the row axis sharded over `axis_name`.
 
     prev_img/next_img: [..., H, W] grayscale (numpy or tensors), H % (n_shards
     · 2^levels) == 0. Returns the [..., H, W, 2] float32 flow on the first
     shard's device, bitwise equal to the unsharded exact-mode flow while the
-    motion stays within the reach of `warp_radius` (module docstring)."""
+    motion stays within the reach of `params.warp_radius` (module docstring)."""
     devs = _tp_devices(mesh, axis_name)
     h, w = prev_img.shape[-2], prev_img.shape[-1]
-    _check_shard_geometry(h, w, len(devs), params, warp_radius)
+    _check_shard_geometry(h, w, len(devs), params)
     prev_blocks, lead = _row_blocks(prev_img, devs)
     next_blocks, _ = _row_blocks(next_img, devs)
-    flow = _shard_flow(prev_blocks, next_blocks, params, h, w, warp_radius)
+    flow = _shard_flow(prev_blocks, next_blocks, params, h, w)
     out = torch.cat([f.to(devs[0]) for f in flow], dim=-2)
     return out.movedim(1, -1).reshape(lead + (h, w, 2))
 
@@ -371,7 +365,6 @@ def spatial_farneback_flow_padded(
     mesh: Mesh,
     axis_name: str = "tp",
     params: FarnebackParams = FarnebackParams(),
-    warp_radius: int = 32,
 ) -> torch.Tensor:
     """spatial_farneback_flow for any H: the rows are replicate-padded up to
     the next multiple of n_shards · 2^levels and the flow is cropped back.
@@ -384,13 +377,13 @@ def spatial_farneback_flow_padded(
     h = prev_img.shape[-2]
     pad = (-h) % (n_dev * 2**params.levels)
     if pad == 0:
-        return spatial_farneback_flow(prev_img, next_img, mesh, axis_name, params, warp_radius)
+        return spatial_farneback_flow(prev_img, next_img, mesh, axis_name, params)
 
     def padded(img):
         x = torch.as_tensor(img)
         return torch.cat([x, x[..., h - 1 :, :].expand(*x.shape[:-2], pad, x.shape[-1])], dim=-2)
 
-    flow = spatial_farneback_flow(padded(prev_img), padded(next_img), mesh, axis_name, params, warp_radius)
+    flow = spatial_farneback_flow(padded(prev_img), padded(next_img), mesh, axis_name, params)
     return flow[..., :h, :, :]
 
 
@@ -408,7 +401,6 @@ def spatial_hue_pipeline(
     grid: GridParams | None = None,
     params: FarnebackParams = FarnebackParams(),
     rb_swap: bool = True,
-    warp_radius: int = 32,
 ):
     """The bounce features of a frame pair with the frame's rows sharded
     over `axis_name`.
@@ -431,10 +423,10 @@ def spatial_hue_pipeline(
     grid = GridParams() if grid is None else grid
     devs = _tp_devices(mesh, axis_name)
     h, w = prev_img.shape[-2], prev_img.shape[-1]
-    _check_shard_geometry(h, w, len(devs), params, warp_radius)
+    _check_shard_geometry(h, w, len(devs), params)
     prev_blocks, lead = _row_blocks(prev_img, devs)
     next_blocks, _ = _row_blocks(next_img, devs)
-    flow = [f.movedim(1, -1) for f in _shard_flow(prev_blocks, next_blocks, params, h, w, warp_radius)]
+    flow = [f.movedim(1, -1) for f in _shard_flow(prev_blocks, next_blocks, params, h, w)]
     mags = [cart_to_polar(f[..., 0], f[..., 1])[0] for f in flow]
     home = devs[0]
     smin = torch.stack([m.amin(dim=(-2, -1), keepdim=True).to(home) for m in mags]).amin(0)

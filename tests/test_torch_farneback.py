@@ -204,19 +204,20 @@ def _pair(hw, seed):
     return (np.clip(a, 0, 255).astype(np.uint8), np.clip(b, 0, 255).astype(np.uint8))
 
 
-@pytest.mark.parametrize("mode", ["exact", "fast", "fast16"])
+@pytest.mark.parametrize("mode", ["exact", "fast", "fast16", "select"])
 @pytest.mark.parametrize("hw", [(64, 128), (75, 131)])
 def test_farneback_flow_epe_vs_jax(hw, mode):
-    """jfb.farneback_flow ↔ tfb.farneback_flow in the same warp mode: mean
-    endpoint error ≤ 1e-4 px. (75, 131) takes the banded-matmul resize.
-    A tolerance check, so the JAX side runs jitted (measured mean EPE
-    ≤ 3.5e-7 px for exact/fast and ≤ 2e-6 px for fast16, where a jitted
-    multiply-add can flip a bf16 rounding)."""
+    """jfb.farneback_flow ↔ tfb.farneback_flow in the same warp mode, at
+    warp_radius 8 (read by 'select' only): mean endpoint error ≤ 1e-4 px.
+    (75, 131) takes the banded-matmul resize. A tolerance check, so the JAX
+    side runs jitted (measured mean EPE ≤ 3.5e-7 px for exact/fast and
+    ≤ 2e-6 px for fast16, where a jitted multiply-add can flip a bf16
+    rounding)."""
     a, b = _pair(hw, 17)
-    params = jfb.FarnebackParams(warp_mode=mode)
+    params = jfb.FarnebackParams(warp_mode=mode, warp_radius=8)
     want = np.asarray(jax.jit(lambda p, q: jfb.farneback_flow(p, q, params))(a, b))
     got = tfb.farneback_flow(
-        torch.from_numpy(a), torch.from_numpy(b), tfb.FarnebackParams(warp_mode=mode)
+        torch.from_numpy(a), torch.from_numpy(b), tfb.FarnebackParams(warp_mode=mode, warp_radius=8)
     ).numpy()
     assert got.shape == want.shape == (2,) + hw + (2,)
     assert np.isfinite(got).all()
@@ -281,8 +282,11 @@ def test_kernel_entries_raise_on_cpu_tensors():
 
 
 def test_unsupported_modes_and_devices_raise(monkeypatch):
-    with pytest.raises(ValueError, match="select"):
-        tfb.FarnebackParams(warp_mode="select")
+    """'select' is a mode of the port, with its radius kept; an unknown mode
+    and a device that is not there raise."""
+    assert tfb.FarnebackParams(warp_mode="select", warp_radius=8).warp_radius == 8
+    with pytest.raises(ValueError, match="bogus"):
+        tfb.FarnebackParams(warp_mode="bogus")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         runtime.resolve_device("cuda")

@@ -294,12 +294,13 @@ def test_chip_smoke_probe_phase_rehearsal(monkeypatch, capsys):
 
 def test_from_jax_config_round_trip():
     """Every field of the JAX PipelineConfig / FarnebackParams / GridParams
-    arrives in the port's config of the same name."""
+    arrives in the port's config of the same name (warp_radius too, and
+    'select' with it); a warp mode the port lacks raises."""
     jcfg = JPipe(
         grid=JGrid(rows=10, cols=12),
         flow=jfb.FarnebackParams(
             pyr_scale=0.6, levels=4, winsize=13, iterations=2, poly_n=7,
-            poly_sigma=1.5, gaussian_win=True, warp_mode="fast16",
+            poly_sigma=1.5, gaussian_win=True, warp_mode="fast16", warp_radius=16,
         ),
         rb_swap=False,
         chunk=5,
@@ -312,8 +313,11 @@ def test_from_jax_config_round_trip():
             if f.name not in ("grid", "flow"):
                 assert getattr(obj_t, f.name) == getattr(obj_j, f.name), f.name
     assert convert.from_jax_config(JPipe()) == type(tcfg)()
-    with pytest.raises(ValueError, match="select"):
-        convert.from_jax_config(jfb.FarnebackParams(warp_mode="select"))
+    assert tcfg.flow.warp_radius == 16
+    sel = convert.from_jax_config(jfb.FarnebackParams(warp_mode="select", warp_radius=8))
+    assert (sel.warp_mode, sel.warp_radius) == ("select", 8)
+    with pytest.raises(ValueError, match="bogus"):
+        convert.from_jax_config(jfb.FarnebackParams(warp_mode="bogus"))
     with pytest.raises(TypeError):
         convert.from_jax_config(object())
 
@@ -415,7 +419,7 @@ from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams
 rng = np.random.default_rng(0)
 prev = rng.integers(0, 256, (80, 64), dtype=np.uint8)
 mesh = parallel.make_mesh({"tp": 2}, ["cpu"] * 2)
-flow = parallel.spatial_farneback_flow(prev, np.roll(prev, 1, 0), mesh, params=FarnebackParams(levels=1), warp_radius=8)
+flow = parallel.spatial_farneback_flow(prev, np.roll(prev, 1, 0), mesh, params=FarnebackParams(levels=1, warp_radius=8))
 assert tuple(flow.shape) == (80, 64, 2)
 img = rng.integers(0, 256, (40, 60, 3), dtype=np.uint8)
 assert search_engine.index_images(img[None], device="cpu").shape == (1, 512)
@@ -799,3 +803,36 @@ def test_chip_smoke_native_decode_phase_rehearsal(monkeypatch, capsys):
                 "time decode demo_out/601_3.avi (75 frames 220x232), frames/s: native",
                 "time stream 7x288x512 native decode", "time stream 7x288x512 cv2 decode"):
         assert tag in out, tag
+
+
+def test_chip_smoke_select_phase_rehearsal(monkeypatch, capsys):
+    """chip_smoke.select_phase on the CPU on a 5-frame 144×256 clip: the
+    'select' flow on both clips (the clip's first 4 pairs and demo_out
+    frames 30-34) agrees across "devices", its EPE against exact and cv2 is
+    printed, process_frames in 'select' and 'fast' are timed in turns, and
+    no 'select' run launches a kernel."""
+    from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
+
+    chip_smoke, _, _ = _rehearse_on_cpu(monkeypatch)
+    launches = chip_smoke.select_phase(torch.device("cpu"), "[cpu rehearsal]", synth_frames(5, 144, 256))
+    zero = {"warp_m": 0, "box_solve": 0}
+    assert launches == {"select_flow_synthetic": zero, "select_flow_demo": zero, "select_process_frames": zero}
+    out = capsys.readouterr().out
+    for tag in ("select flow, 4 pairs of synthetic 256x144", "card vs CPU mean EPE 0 px (bound 0.001), bitwise True",
+                "select flow, 4 pairs of demo_out/601_3.avi 220x232", "vs exact ", "vs cv2 ",
+                "time process_frames 5x144x256 chunk 16, tables only, median of 1 in turns: select ",
+                "peak allocated not measured (no card)", "; fast "):
+        assert tag in out, tag
+
+
+def test_chip_smoke_select_phase_fails_on_a_kernel_launch(monkeypatch):
+    """chip_smoke.select_phase holds the 'select' path to no kernel launch:
+    with farneback_flow routed through the kernel wrappers, it fails at its
+    first flow."""
+    from opticalflowclustering_tpu_torch.flow import farneback
+    from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
+
+    chip_smoke, _, _ = _rehearse_on_cpu(monkeypatch)
+    monkeypatch.setattr(farneback, "uses_kernels", lambda params: True)
+    with pytest.raises(AssertionError, match="select flow synthetic 256x144 launched"):
+        chip_smoke.select_phase(torch.device("cpu"), "[cpu]", synth_frames(5, 144, 256))

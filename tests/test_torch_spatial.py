@@ -130,28 +130,69 @@ def test_spatial_geometry_errors_and_cuda_refusal():
     z = np.zeros((100, 96), np.uint8)
     with pytest.raises(ValueError, match="must divide"):
         spatial.spatial_farneback_flow(z, z, _tp(4), "tp", PARAMS)
+    small = FarnebackParams(levels=1, warp_radius=8)
     z = np.zeros((128, 96), np.uint8)  # 32-row blocks, a 38-row halo at levels 1, warp_radius 8
     with pytest.raises(ValueError, match="too small"):
-        spatial.spatial_farneback_flow(z, z, _tp(4), "tp", FarnebackParams(levels=1), warp_radius=8)
+        spatial.spatial_farneback_flow(z, z, _tp(4), "tp", small)
     with pytest.raises(ValueError, match="too small"):
-        spatial.spatial_hue_pipeline(z, z, _tp(4), "tp", GridParams(4, 4), FarnebackParams(levels=1), warp_radius=8)
-    for h, n, params, radius in ((100, 4, PARAMS, 32), (128, 4, FarnebackParams(levels=1), 8), (256, 4, PARAMS, 32)):
-        jparams = JFlow(levels=params.levels, warp_radius=radius)
+        spatial.spatial_hue_pipeline(z, z, _tp(4), "tp", GridParams(4, 4), small)
+    for h, n, params in ((100, 4, PARAMS), (128, 4, small), (256, 4, PARAMS)):
+        jparams = JFlow(levels=params.levels, warp_radius=params.warp_radius)
         try:
             jspatial._check_shard_geometry(h, 96, n, jparams)
             jax_ok = True
         except ValueError:
             jax_ok = False
         try:
-            spatial._check_shard_geometry(h, 96, n, params, radius)
+            spatial._check_shard_geometry(h, 96, n, params)
             ok = True
         except ValueError:
             ok = False
-        assert ok == jax_ok, (h, n, radius)
-        assert spatial._level_margins(params, radius) == jspatial._level_margins(jparams)
+        assert ok == jax_ok, (h, n, params.warp_radius)
+        assert spatial._level_margins(params) == jspatial._level_margins(jparams)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             spatial.spatial_farneback_flow(z, z, make_mesh({"tp": 2}, ["cuda"] * 2), "tp", PARAMS)
+
+
+@pytest.mark.parametrize("radius", [8, 16, 32, 64])
+def test_converted_warp_radius_sets_the_shard_geometry(radius):
+    """`warp_radius` carries across `from_jax_config`, so the port's
+    _level_margins(params) equals JAX's for the JAX params, and the port's
+    _check_shard_geometry accepts and refuses the frames JAX's does on tp=4
+    at levels 1. At warp_radius 8 (the JAX dryrun's spatial params) both
+    accept 160- and 192-row frames: a 38-row halo, not the 54 rows of the
+    default 32 that the port used while it dropped the field."""
+    jparams = JFlow(levels=1, warp_radius=radius)
+    params = from_jax_config(jparams)
+    assert params.warp_radius == radius
+    assert spatial._level_margins(params) == jspatial._level_margins(jparams)
+    for h in (160, 192, 256, 512):
+        try:
+            jspatial._check_shard_geometry(h, 96, 4, jparams)
+            jax_ok = True
+        except ValueError:
+            jax_ok = False
+        try:
+            spatial._check_shard_geometry(h, 96, 4, params)
+            ok = True
+        except ValueError:
+            ok = False
+        assert ok == jax_ok, (h, radius)
+        if radius == 8 and h in (160, 192):
+            assert ok, h
+
+
+def test_converted_dryrun_params_shard_160_rows_bitwise():
+    """JAX's dryrun spatial params, FarnebackParams(levels=1,
+    warp_radius=8), converted: the port's spatial flow takes a 160-row frame
+    on tp=4 (40-row blocks over a 38-row halo) and is bitwise the unsharded
+    exact flow."""
+    params = from_jax_config(JFlow(levels=1, warp_radius=8))
+    prev, nxt = _moving_pair(160, 96, dy=2, dx=1, seed=6)
+    got = spatial.spatial_farneback_flow(prev, nxt, _tp(4), "tp", params)
+    assert got.shape == (160, 96, 2)
+    assert torch.equal(got, _flow(prev, nxt, params))
 
 
 def _smallest_jax_case():
@@ -163,7 +204,7 @@ def _smallest_jax_case():
 
 
 def _port_smallest(prev, nxt):
-    return spatial.spatial_farneback_flow(prev, nxt, _tp(2), "tp", FarnebackParams(levels=1), warp_radius=8).numpy()
+    return spatial.spatial_farneback_flow(prev, nxt, _tp(2), "tp", FarnebackParams(levels=1, warp_radius=8)).numpy()
 
 
 def test_spatial_flow_matches_jax_jitted():
@@ -172,7 +213,7 @@ def test_spatial_flow_matches_jax_jitted():
     tolerance (measured 1.2e-6)."""
     prev, nxt, jparams = _smallest_jax_case()
     with pytest.raises(ValueError, match="too small"):
-        spatial._check_shard_geometry(76, 64, 2, FarnebackParams(levels=1), 8)
+        spatial._check_shard_geometry(76, 64, 2, FarnebackParams(levels=1, warp_radius=8))
     mesh = JMesh(np.array(jax.devices()[:2]), ("tp",))
     want = np.asarray(jspatial.spatial_farneback_flow(jnp.asarray(prev), jnp.asarray(nxt), mesh, "tp", jparams))
     got = _port_smallest(prev, nxt)
