@@ -74,7 +74,10 @@ from opticalflowclustering_tpu_torch.utils.profiling import card_line
 
 H, W, N = 720, 1280, 49
 REPEATS = 3
-PROBE_CHECK_N = (1, 7, 256)  # probe checks: the plain loops run in Python
+# Trip counts of the probes' bitwise checks (the plain loops run in Python):
+# 0 to 2U + 1 for U = probes.UNROLL = 16, so every n mod U and a group more,
+# then 256 and one above 1,000.
+PROBE_CHECK_N = tuple(range(34)) + (256, 1031)
 PLAIN_SLOPE_N = (64, 256)  # trip counts of the plain loops' per-iteration slope
 # box_solve's bitwise check: every odd winsize the kernel takes, on the
 # pyramid's level shapes and on these, whose windows are wider than the
@@ -130,11 +133,14 @@ def sat(colours) -> np.ndarray:
 
 def probe_phase(dev, stamp: str) -> list[dict]:
     """Phase 3b: the four gather-cost probe kernels. Holds each against its
-    plain version on the card (bitwise, at small trip counts), times the
-    plain loops per iteration, then runs the probe scripts at their full
-    sizes with every launch count set to 0 just before, and checks that each
-    probe kernel (and warp_m, box_solve through profile_r4's D) launched.
-    Returns the kernels' entries of the results line."""
+    plain version on the card (bitwise, at every trip count of
+    PROBE_CHECK_N), times the plain loops per iteration, then runs the probe
+    scripts at their full sizes with every launch count set to 0 just
+    before, and checks that each probe kernel (and warp_m, box_solve through
+    profile_r4's D) launched. Prints each body's time beside its three
+    bounds (ALU, acc chain, shared memory) and this tile's bank conflicts,
+    and dynslice's graph-replay time beside its launch floor. Returns the
+    kernels' entries of the results line."""
     import torch
 
     from opticalflowclustering_tpu_torch.kernels import probes
@@ -175,7 +181,7 @@ def probe_phase(dev, stamp: str) -> list[dict]:
             *PLAIN_SLOPE_N, repeats=3)
     x, idx = tile("take")
     n_ms = PLAIN_SLOPE_N[-1]
-    take_ms = profiling.event_ms(lambda: probes.loop_probe("take", x, idx, n_ms))
+    take_ms = profiling.graph_ms(lambda: probes.loop_probe("take", x, idx, n_ms), gcp.GRAPH_LAUNCHES)
     take_plain_ms = profiling.event_ms(lambda: probes.loop_probe_reference("take", x, idx, n_ms), 3)
     dyn_plain_ms = profiling.event_ms(lambda: probes.dynslice_reference(xb, one))
     take_bound, take_by = profiling.bound_ms(*probes.loop_probe_cost("take", x.shape[0], n_ms))
@@ -187,7 +193,7 @@ def probe_phase(dev, stamp: str) -> list[dict]:
     g = gcp.run_all(dev, stamp)
     r = pr4.run_all(dev, stamp)
     launches, warp_launches = dict(probes.LAUNCHES), dict(kw.LAUNCHES)
-    print(f"probe path: launches {launches}, {warp_launches}")
+    print(f"probe path: launches {launches}, {warp_launches} (a call captured into a CUDA graph counts once)")
     check(all(v > 0 for v in launches.values()), f"a probe kernel was not launched: {launches}")
     check(all(v > 0 for v in warp_launches.values()), f"profile_r4 D launched no warp kernel: {warp_launches}")
 
@@ -197,58 +203,55 @@ def probe_phase(dev, stamp: str) -> list[dict]:
     replaces = {"mul": f"{gcp_src}:34", "where": f"{gcp_src}:34", "take": f"{gcp_src}:34",
                 "take_bf16": f"{gcp_src}:94", "two_takes": f"{r4_src}:72",
                 "packed_take_unpack": f"{r4_src}:72"}
+    sm, max_sm = profiling.sm_clocks_mhz()
+    idx_cpu = gcp.tile("cpu")[1]  # the probes' idx, as the scripts make it
     bodies = {}
     for body in probes.BODIES:
-        # One more iteration moves no byte: its bound is its operations'.
-        bound_ns = 1e6 * profiling.bound_ms(0, probes.loop_probe_cost(body, x.shape[0], 1)[1])[0]
-        bodies[body] = {"replaces": replaces[body], "ns_per_iter": kern_ns[body],
-                        "plain_ns_per_iter": plain_ns[body], "bound_ns_per_iter": bound_ns}
-        print(f"time loop_probe {body} [80,128]: kernel {kern_ns[body]:.3f} ns/iter, plain "
-              f"{plain_ns[body]:.1f} ns/iter, bound {bound_ns:.3f} ns/iter ({bound_ns / kern_ns[body]:.1%}; "
-              f"one dependent chain per thread on one wave) (CUDA events, slopes) {stamp}")
-    print(f"time loop_probe take n={n_ms}: kernel {take_ms:.4f} ms, plain {take_plain_ms:.4f} ms, "
-          f"bound {take_bound:.6f} ms ({take_by}); dynslice: kernel {g['dynslice_ms']:.4f} ms, "
-          f"plain {dyn_plain_ms:.4f} ms, bound {dyn_bound:.6f} ms ({dyn_by}) (CUDA events; a dependent "
-          f"chain and one launch, so far from any bound by design) {stamp}")
+        k = kern_ns[body]
+        b = probes.loop_probe_bounds_ns(body, x.shape[0], max_sm)
+        busiest, per_warp = probes.gather_wavefronts(body, idx_cpu)
+        floor_ns = busiest / max_sm * 1e3
+        bodies[body] = {"replaces": replaces[body], "ns_per_iter": k, "plain_ns_per_iter": plain_ns[body],
+                        "bound_ns_per_iter": max(b.values()), "alu_bound_ns": b["alu"],
+                        "chain_bound_ns": b["chain"], "smem_bound_ns": b["smem"],
+                        "busiest_row_wavefronts": busiest, "gather_wavefronts_per_warp": per_warp,
+                        "busiest_row_ns": floor_ns}
+        shares = ", ".join(f"{name} {v:.3f} ({v / k:.1%})" for name, v in
+                           (("ALU", b["alu"]), ("acc chain", b["chain"]), ("shared memory", b["smem"])))
+        print(f"time loop_probe {body} [80,128]: kernel {k:.3f} ns/iter, plain {plain_ns[body]:.1f} ns/iter; "
+              f"bounds {shares} ns/iter, the largest {max(b.values()):.3f} "
+              f"({max(b.values()) / k:.1%}), at {max_sm:.0f} MHz (clocks.max.sm; clocks.sm {sm:.0f} MHz now) "
+              f"(CUDA events, slopes) {stamp}")
+        if busiest:
+            print(f"bank conflicts loop_probe {body}: the seed-0 idx's busiest row needs {busiest} wavefronts an "
+                  f"iteration, stores included ({floor_ns:.3f} ns on its SM at {max_sm:.0f} MHz, {floor_ns / k:.1%} "
+                  f"of the kernel's time); a warp's gather {per_warp:.2f} wavefronts on average")
+    dyn = g["dynslice"]
+    print(f"time loop_probe take n={n_ms}: kernel {take_ms:.4f} ms (CUDA graph replay), plain {take_plain_ms:.4f} "
+          f"ms, bound {take_bound:.6f} ms ({take_by}) {stamp}")
+    print(f"time dynslice: kernel {dyn['ms']:.6f} ms (CUDA graph replay), launch floor {dyn['floor_ms']:.6f} ms, "
+          f"host-inclusive call {dyn['host_ms']:.4f} ms, plain {dyn_plain_ms:.4f} ms, bound {dyn_bound:.7f} ms "
+          f"({dyn_by}; {dyn_bound / dyn['ms']:.2%}); the floor is {dyn['floor_ms'] / dyn['ms']:.1%} of the "
+          f"kernel's time {stamp}")
     src = "opticalflowclustering_tpu_torch/kernels/csrc/probes.cu"
     return [
         {"name": "loop_probe", "route": "cuda", "source": src,
          "replaces": f"{gcp_src}:34, {gcp_src}:94, {r4_src}:72",
          "launches": launches["loop_probe"], "max_abs_err": err["loop_probe"],
          "ms": take_ms, "plain_ms": take_plain_ms, "bound_ms": take_bound, "bound_by": take_by,
-         "library_ms": None, "ms_of": f"take, n={n_ms}", "bodies": bodies},
+         "library_ms": None, "ms_of": f"take, n={n_ms}, CUDA graph replay", "bodies": bodies,
+         "design": f"one block of 128 threads per row (80 blocks, one wave); stage groups of {probes.UNROLL} "
+                   f"iterations: the fresh rows stored to one shared-memory buffer each behind one barrier, "
+                   f"gathered back to back, added to acc after the next group's gathers; two buffer sets; a "
+                   f"float counter and packed bf16 conversions, no conversion per element"},
         {"name": "dynslice", "route": "cuda", "source": src, "replaces": f"{gcp_src}:133",
          "launches": launches["dynslice"], "max_abs_err": err["dynslice"],
-         "ms": g["dynslice_ms"], "plain_ms": dyn_plain_ms, "bound_ms": dyn_bound, "bound_by": dyn_by,
-         "library_ms": None},
+         "ms": dyn["ms"], "plain_ms": dyn_plain_ms, "bound_ms": dyn_bound, "bound_by": dyn_by,
+         "library_ms": None, "ms_of": "CUDA graph replay", "launch_floor_ms": dyn["floor_ms"],
+         "host_ms": dyn["host_ms"],
+         "design": "one block of 384 threads; the 24-row window alone, one 16-byte load of 8 bf16 and two "
+                   "16-byte stores a thread; no shared memory, no barrier"},
     ]
-
-
-# Ops on each probe body's loop-carried chain through `acc` per iteration
-# (kernels/csrc/probes.cu loop_probe_kernel: acc = acc + g(..., acc)): the
-# add, and for `where` the select of acc before it. Each waits for the last.
-PROBE_CHAIN_OPS = {"mul": 1, "where": 2, "take": 1, "take_bf16": 1, "two_takes": 1, "packed_take_unpack": 1}
-CHAIN_OP_CYCLES = 4  # dependent-issue latency of an FP32 add or select on sm_90
-
-
-def probe_chain_bounds(bodies: dict) -> dict:
-    """Each probe body's dependent-chain bound in ns per iteration: the ops
-    on its acc chain × their latency ÷ the card's max SM clock (nvidia-smi
-    clocks.max.sm), printed beside its time and its ALU bound."""
-    import subprocess
-
-    clocks = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=clocks.sm,clocks.max.sm",
-                             "--format=csv,noheader,nounits"], capture_output=True, text=True, check=True,
-                            timeout=60).stdout.split(",")
-    sm, max_sm = (float(c) for c in clocks)
-    bounds = {}
-    for body, b in bodies.items():
-        bounds[body] = PROBE_CHAIN_OPS[body] * CHAIN_OP_CYCLES * 1e3 / max_sm
-        print(f"bound loop_probe {body}: {PROBE_CHAIN_OPS[body]} op(s) on the acc chain x {CHAIN_OP_CYCLES} "
-              f"cycles / {max_sm:.0f} MHz (clocks.max.sm; clocks.sm {sm:.0f} MHz now) = {bounds[body]:.3f} "
-              f"ns/iter dependent-chain bound, beside ALU bound {b['bound_ns_per_iter']:.3f} and kernel "
-              f"{b['ns_per_iter']:.3f} ns/iter ({bounds[body] / b['ns_per_iter']:.1%} of the chain bound)")
-    return bounds
 
 
 def sync(dev) -> None:
@@ -1957,7 +1960,6 @@ def main() -> int:
 
     # Phase 3b: the probe kernels and their scripts.
     probe_kernels = probe_phase(dev, stamp)
-    probe_chain_bounds(probe_kernels[0]["bodies"])
 
     # Phase 4: the slice, at 1280x720, through process_frames.
     frames = synth_frames(N, H, W)

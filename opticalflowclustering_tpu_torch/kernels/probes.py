@@ -20,12 +20,20 @@ Two kernels, written by hand for sm_90a in `csrc/probes.cu`:
              rem(off, 8) · 8, widened to float32, with `off` read on the
              device.
 
-They are microbenchmarks: the scripts in `scripts/` time them by the slope
-between two trip counts. `loop_probe` and `dynslice` are the wrappers: for a
-CPU tensor they run the plain versions (`loop_probe_reference`,
+They are microbenchmarks: the scripts in `scripts/` time `loop_probe` by
+the slope between two trip counts and `dynslice` by replaying a CUDA graph
+of many launches. `loop_probe` and `dynslice` are the wrappers: for a CPU
+tensor they run the plain versions (`loop_probe_reference`,
 `dynslice_reference`); for a CUDA tensor they launch the kernel or raise.
-`LAUNCHES` counts kernel launches. The kernel equals its plain version bit
-for bit (see `csrc/probes.cu` for the order of operations).
+`LAUNCHES` counts kernel launches (a call captured into a CUDA graph counts
+once, when it is captured). The kernel equals its plain version bit for bit
+(see `csrc/probes.cu` for the order of operations and its stage groups of
+UNROLL iterations).
+
+Beside each body's ALU bound (`loop_probe_cost`), `loop_probe_bounds_ns`
+gives the two others a redesign of the same loop is held to: the dependent
+chain through `acc`, and the least shared-memory traffic of the take bodies;
+`gather_wavefronts` counts what an actual `idx` tile costs in bank conflicts.
 """
 
 from __future__ import annotations
@@ -34,10 +42,12 @@ import torch
 
 from opticalflowclustering_tpu_torch.kernels.build import build
 from opticalflowclustering_tpu_torch.runtime import f32
+from opticalflowclustering_tpu_torch.utils.profiling import F32_OPS_PER_S
 
 ROWS, LANES = 80, 128  # the probes' tile
 WINDOW = 24  # rows of the dynslice window
 MAX_N = 1 << 24  # trip counts below this are exact in float32
+UNROLL = 16  # iterations per stage group (csrc/probes.cu kUnroll)
 BODIES = ("mul", "where", "take", "take_bf16", "two_takes", "packed_take_unpack")
 _MUL = f32(1.0001)
 # Float32 adds, multiplies and selects that one more iteration adds per
@@ -46,6 +56,20 @@ _MUL = f32(1.0001)
 # memory), conversions and bit operations.
 OPS_PER_ITER = {"mul": 3, "where": 3, "take": 2, "take_bf16": 2, "two_takes": 4,
                 "packed_take_unpack": 3}
+
+# Ops on each body's loop-carried chain through `acc` per iteration: the add,
+# and for `where` the select of acc before it. Each waits for the last, at
+# CHAIN_OP_CYCLES (an FP32 add's or select's dependent-issue latency on sm_90).
+CHAIN_OPS = {"mul": 1, "where": 2, "take": 1, "take_bf16": 1, "two_takes": 1,
+             "packed_take_unpack": 1}
+CHAIN_OP_CYCLES = 4
+# Rows of the tile each body stores to shared memory and gathers back per
+# iteration (two_takes: two).
+STAGED_ROWS = {"mul": 0, "where": 0, "take": 1, "take_bf16": 1, "two_takes": 2,
+               "packed_take_unpack": 1}
+SMS = 132  # streaming multiprocessors of one H100 SXM
+WARP = 32
+BANKS = 32  # shared-memory banks of 4 bytes; one 128-byte wavefront per clock per SM
 
 # Kernel launches per wrapper; `reset_launches` sets them to 0.
 LAUNCHES = {"loop_probe": 0, "dynslice": 0}
@@ -61,6 +85,46 @@ def loop_probe_cost(body: str, rows: int, n: int) -> tuple[int, int]:
     tile: x and idx read once, the output written once."""
     x_bytes = 2 if body == "take_bf16" else 4
     return rows * LANES * (x_bytes + 4 + 4), rows * LANES * n * OPS_PER_ITER[body]
+
+
+def smem_wavefronts(body: str, rows: int) -> int:
+    """Least shared-memory wavefronts of one iteration over a [rows, 128]
+    tile: per warp, one stored and one gathered 32-lane group per staged row,
+    each conflict-free."""
+    return rows * (LANES // WARP) * 2 * STAGED_ROWS[body]
+
+
+def loop_probe_bounds_ns(body: str, rows: int, clock_mhz: float) -> dict[str, float]:
+    """Three least times of one iteration in ns, at an SM clock of
+    `clock_mhz`: `alu`, the float32 operations over all lanes of the card;
+    `chain`, the ops on the acc chain at their latency; `smem`, the least
+    wavefronts over every SM at one per clock (0 for mul and where)."""
+    return {
+        "alu": rows * LANES * OPS_PER_ITER[body] / F32_OPS_PER_S * 1e9,
+        "chain": CHAIN_OPS[body] * CHAIN_OP_CYCLES / clock_mhz * 1e3,
+        "smem": smem_wavefronts(body, rows) / SMS / clock_mhz * 1e3,
+    }
+
+
+def gather_wavefronts(body: str, idx: torch.Tensor) -> tuple[int, float]:
+    """What the gathers of one iteration cost in shared memory for this
+    `idx` ([rows, 128], clamped to [0, 128)): (the busiest row's wavefronts,
+    its stores included, which one SM serves alone in the one-row-per-block
+    layout; the mean wavefronts of one warp's gather). A warp's gather takes
+    as many wavefronts as its busiest bank holds distinct 4-byte words among
+    the lanes it reads (equal words are broadcast); a bf16 lane is half a
+    word. (0, 0.0) for mul and where, which stage nothing."""
+    staged = STAGED_ROWS[body]
+    if not staged:
+        return 0, 0.0
+    elem_bytes = 2 if body == "take_bf16" else 4
+    words = LANES * elem_bytes // 4
+    j = idx.clamp(0, LANES - 1).long().reshape(idx.shape[0], LANES // WARP, WARP)
+    present = torch.zeros(j.shape[:2] + (words,), dtype=torch.int64)
+    present.scatter_(-1, j * elem_bytes // 4, 1)
+    per_warp = present.reshape(j.shape[:2] + (words // BANKS, BANKS)).sum(-2).amax(-1)
+    busiest = staged * int((LANES // WARP + per_warp.sum(-1)).max())
+    return busiest, float(per_warp.double().mean())
 
 
 def dynslice_cost() -> tuple[int, int]:
@@ -182,6 +246,8 @@ def dynslice_cuda(x: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
     _check_dynslice_args(x, off)
     _check_cuda("x", x, x.device)
     _check_cuda("off", off, x.device)
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned (the kernel loads 8 bf16 at a time)")
     ext = build()
     out = torch.empty((WINDOW, LANES), dtype=torch.float32, device=x.device)
     ext.dynslice(x, off, out)

@@ -84,6 +84,7 @@ def canny(
     threshold1: float,
     threshold2: float,
     l2gradient: bool = False,
+    hysteresis_iters: int = 64,
 ) -> torch.Tensor:
     """cv2.Canny for a uint8 [..., H, W] image → uint8 edge map {0, 255}.
 
@@ -97,7 +98,10 @@ def canny(
     against |gx|·13573 and |gx|·13573 + |gx|·2^16, which fit in int32 for
     |g| <= 1020) with (>, >=) ties horizontally and vertically and strict >
     on the diagonals; hysteresis to its fixpoint, zero magnitude outside
-    the image."""
+    the image.
+
+    `hysteresis_iters` is accepted and unused, as in the reference, whose
+    `lax.while_loop` also runs to the fixpoint."""
     lo_f, hi_f = min(threshold1, threshold2), max(threshold1, threshold2)
     if l2gradient:
         lo_f, hi_f = min(32767.0, lo_f), min(32767.0, hi_f)

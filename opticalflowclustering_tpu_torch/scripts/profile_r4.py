@@ -162,8 +162,9 @@ def experiment_c_accounting(
     print(f"C. measured accounting: A's per-take cost {take_ns:.3f} ns per "
           f"[80,128] take x {CORNER_LOADS} corner loads per pixel x {pixels} "
           f"pixels = {gather_ms:.4f} ms, against warp_m's {warp_ms:.4f} ms at "
-          f"[{WARP_BATCH},5,{H},{W}] -> {out['gather_share_pct']:.1f}% (a dependent "
-          f"shared-memory gather's latency on one wave, spread over 10240 lanes: "
+          f"[{WARP_BATCH},5,{H},{W}] -> {out['gather_share_pct']:.1f}% (a shared-memory "
+          f"gather of the fresh row on one wave of 80 blocks, its random idx's bank "
+          f"conflicts included, spread over 10240 lanes: "
           f"it overstates what warp_m's cached loads cost at full occupancy) {stamp}")
     return out
 

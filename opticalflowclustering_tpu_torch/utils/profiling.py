@@ -2,8 +2,9 @@
 
 Per-stage wall timers that wait for the card, a frames/sec/card meter, a
 `torch.profiler` trace context, and the card-side timers the probe scripts
-use: CUDA events around one call, and the slope between two trip counts,
-which cancels the launch.
+use: CUDA events around one call, the slope between two trip counts, which
+cancels the launch, and the replay of a CUDA graph of many launches, which
+leaves the host out of a small kernel's time.
 """
 
 from __future__ import annotations
@@ -115,6 +116,18 @@ def card_line(index: int = 0) -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def sm_clocks_mhz(index: int = 0) -> tuple[float, float]:
+    """Card `index`'s SM clock now and its maximum in MHz, as `nvidia-smi
+    --query-gpu=clocks.sm,clocks.max.sm` prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    sm, max_sm = (float(c) for c in out.split(","))
+    return sm, max_sm
+
+
 def event_ms(fn: Callable[[], object], repeats: int = 10, warmup: int = 1) -> float:
     """Least time in ms of one call of `fn` over `repeats` calls, between CUDA
     events recorded on the current stream around it (after `warmup` calls).
@@ -150,3 +163,35 @@ def slope_ms(
             f"t({lo}) = {t_lo:.6g} ms (loop hoisted or folded?)"
         )
     return (t_hi - t_lo) / (hi - lo)
+
+
+def graph_ms(fn: Callable[[], object], launches: int = 200, repeats: int = 10) -> float:
+    """Least device time in ms of one call of `fn`: `launches` calls are
+    captured into one CUDA graph, and each of `repeats` replays is timed
+    between CUDA events on the current stream and divided by `launches`.
+    The host's work per call (checks, allocation, the enqueue) runs once, at
+    capture, so this times the kernels and the gaps between them. `fn` runs
+    once first on a side stream, as capture requires. Raises where there is
+    no CUDA device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("graph_ms times the card, but torch.cuda.is_available() is False")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    best = math.inf
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / launches)
+    return best

@@ -125,6 +125,20 @@ def test_canny_bitwise(l2, t1, t2):
     assert (got > 0).any() or l2
 
 
+@pytest.mark.parametrize("l2", [False, True])
+@pytest.mark.parametrize("iters", [1, 64])
+def test_canny_takes_hysteresis_iters(l2, iters):
+    """jed.canny(..., hysteresis_iters=k) ↔ ted.canny(..., hysteresis_iters=k),
+    bitwise: both accept the keyword and ignore it, running hysteresis to
+    its fixpoint (on a demo frame whose weak chains take more than one
+    step to grow, so k = 1 would differ were it read)."""
+    x = cv2.GaussianBlur(FRAME, (3, 3), 0)
+    got = ted.canny(_t(x), 20, 120, l2gradient=l2, hysteresis_iters=iters).numpy()
+    want = np.asarray(jed.canny(jnp.asarray(x), 20, 120, l2gradient=l2, hysteresis_iters=iters))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, ted.canny(_t(x), 20, 120, l2gradient=l2).numpy())
+
+
 def test_canny_huge_threshold_is_clamped():
     """A threshold beyond int32 (where the JAX conversion overflows) is
     clamped, so it compares as the unbounded number would: above every

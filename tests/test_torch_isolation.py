@@ -226,10 +226,13 @@ def test_process_video_file_loads_no_jax_package_module():
 
 def test_chip_smoke_probe_phase_rehearsal(monkeypatch, capsys):
     """chip_smoke.probe_phase on the CPU at small sizes: the kernel entries
-    are counted plain versions and the card timers a host clock. Every check
-    of the phase runs, each probe kernel and warp kernel is counted on the
-    probe path, and the phase returns the two probe entries of the results
-    line with every field the contract names."""
+    are counted plain versions, the card timers (CUDA events and the CUDA
+    graph's replay) a host-clocked loop and the SM clock a fixed 1980 MHz.
+    Every check of the phase runs, at every trip count mod probes.UNROLL,
+    each probe kernel and warp kernel is counted on the probe path, every
+    body's three bounds and dynslice's launch floor are printed, and the
+    phase returns the two probe entries of the results line with every field
+    the contract names."""
     import chip_smoke
     from opticalflowclustering_tpu_torch.kernels import probes
     from opticalflowclustering_tpu_torch.kernels import warp as kw
@@ -258,7 +261,13 @@ def test_chip_smoke_probe_phase_rehearsal(monkeypatch, capsys):
     counted(probes, "dynslice", probes.dynslice_reference)
     counted(kw, "warp_m", kw.warp_m_reference)
     counted(kw, "box_solve", kw.box_solve_reference)
+    def host_graph_ms(fn, launches=200, repeats=10):
+        return host_ms(lambda: [fn() for _ in range(launches)], repeats) / launches
+
     monkeypatch.setattr(profiling, "event_ms", host_ms)
+    monkeypatch.setattr(profiling, "graph_ms", host_graph_ms)
+    monkeypatch.setattr(profiling, "sm_clocks_mhz", lambda index=0: (1755.0, 1980.0))
+    monkeypatch.setattr(gcp, "GRAPH_LAUNCHES", 4)
     monkeypatch.setattr(gcp, "N_LO", 8)
     monkeypatch.setattr(gcp, "N_HI", 64)
     for name, value in [("N_LO", 8), ("N_HI", 64), ("BW_SHAPE", (4, 72, 128)), ("H", 64),
@@ -270,8 +279,15 @@ def test_chip_smoke_probe_phase_rehearsal(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert out.count("bitwise equal to the plain version") == len(probes.BODIES) + 1
     for tag in ("mul:", "where:", "take:", "take-bf16:", "bf16 8-row", "A. ", "B. ",
-                "D. fast/smooth", "D. fast16/noise", "C. smooth", "C. measured"):
+                "D. fast/smooth", "D. fast16/noise", "C. smooth", "C. measured", "launch floor",
+                "host-inclusive", "time dynslice: kernel"):
         assert tag in out, tag
+    assert {n % probes.UNROLL for n in chip_smoke.PROBE_CHECK_N} == set(range(probes.UNROLL))
+    assert f"n={chip_smoke.PROBE_CHECK_N}" in out
+    for body in probes.BODIES:
+        line = next(ln for ln in out.splitlines() if ln.startswith(f"time loop_probe {body} "))
+        assert "ALU" in line and "acc chain" in line and "shared memory" in line and "1980 MHz" in line
+        assert (f"bank conflicts loop_probe {body}:" in out) == (probes.STAGED_ROWS[body] > 0)
     assert probes.LAUNCHES["loop_probe"] > 0 and probes.LAUNCHES["dynslice"] > 0
     assert kw.LAUNCHES["warp_m"] > 0 and kw.LAUNCHES["box_solve"] > 0
     assert [e["name"] for e in entries] == ["loop_probe", "dynslice"]
@@ -285,10 +301,15 @@ def test_chip_smoke_probe_phase_rehearsal(monkeypatch, capsys):
             path, line = ref.split(":")
             with open(os.path.join(REPO, path)) as f:
                 assert "def " in f.read().splitlines()[int(line) - 1], ref
+        assert e["design"]
     bodies = entries[0]["bodies"]
     assert sorted(bodies) == sorted(probes.BODIES)
     assert all(b["ns_per_iter"] > 0 and b["plain_ns_per_iter"] > 0 and b["bound_ns_per_iter"] > 0
                for b in bodies.values())
+    for b in bodies.values():
+        assert b["bound_ns_per_iter"] == max(b["alu_bound_ns"], b["chain_bound_ns"], b["smem_bound_ns"])
+    assert bodies["take"]["busiest_row_wavefronts"] == 17 and bodies["mul"]["busiest_row_wavefronts"] == 0
+    assert entries[1]["launch_floor_ms"] > 0 and entries[1]["host_ms"] > 0
     json.dumps(entries)
 
 

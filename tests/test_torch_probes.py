@@ -14,6 +14,7 @@ rounds where the source writes it, and every probe is held bitwise. The
 CUDA kernels are held to these plain versions on the card by chip_smoke.py.
 """
 
+import functools
 import importlib.util
 import os
 import re
@@ -287,3 +288,219 @@ def test_probe_costs_and_bounds():
     assert probes.dynslice_cost() == (4 + 24 * 128 * 6, 0)
     assert bound_ms(*probes.loop_probe_cost("mul", 80, 256))[1] == "operations"
     assert bound_ms(*probes.dynslice_cost())[1] == "bytes"
+
+
+# --- the Hopper design of csrc/probes.cu: its bounds and its arithmetic -----
+
+U = probes.UNROLL
+SRC = os.path.join(REPO, "opticalflowclustering_tpu_torch", "kernels", "csrc", "probes.cu")
+
+
+def test_unroll_matches_the_kernel_source():
+    """probes.UNROLL (the trip counts chip_smoke.py checks are built on it) is
+    the kernel's stage-group length."""
+    with open(SRC) as f:
+        m = re.search(r"constexpr int kUnroll = (\d+);", f.read())
+    assert m and int(m.group(1)) == U
+
+
+# body: (busiest row's wavefronts per iteration, mean per warp gather,
+#        ALU, chain and shared-memory bounds in ns per iteration at 1980 MHz)
+SEED0_BOUNDS = {
+    "mul": (0, 0.0, 0.9170, 2.0202, 0.0),
+    "where": (0, 0.0, 0.9170, 4.0404, 0.0),
+    "take": (17, 2.771875, 0.6113, 2.0202, 2.4487),
+    "take_bf16": (12, 2.0, 0.6113, 2.0202, 2.4487),
+    "two_takes": (34, 2.771875, 1.2226, 2.0202, 4.8974),
+    "packed_take_unpack": (17, 2.771875, 0.9170, 2.0202, 2.4487),
+}
+
+
+@pytest.mark.parametrize("body", probes.BODIES)
+def test_probe_bounds_for_the_seed0_tile(body):
+    """The three bounds chip_smoke.py prints for each body, and the bank
+    conflicts of the scripts' seed-0 idx: a float32 warp gather averages
+    2.77 wavefronts (its busiest row 13 over 4 warps, plus 4 for the
+    stores), a bf16 one 2 (8 a row). The largest bound is what a body's
+    share is taken against."""
+    _, _, _, idx = _inputs()
+    busiest, per_warp, alu, chain, smem = SEED0_BOUNDS[body]
+    assert probes.gather_wavefronts(body, idx) == (busiest, pytest.approx(per_warp))
+    b = probes.loop_probe_bounds_ns(body, 80, 1980.0)
+    assert b == {"alu": pytest.approx(alu, abs=1e-4), "chain": pytest.approx(chain, abs=1e-4),
+                 "smem": pytest.approx(smem, abs=1e-4)}
+    assert probes.smem_wavefronts(body, 80) == 80 * 4 * 2 * probes.STAGED_ROWS[body]
+
+
+def test_gather_wavefronts_broadcast_and_conflicts():
+    """Lanes reading one word are served at once; distinct words of one bank
+    take one wavefront each, at most 4 for float32 (128 words) and 2 for
+    bf16 (two lanes a word)."""
+    same = torch.zeros((1, 128), dtype=torch.int32)
+    assert probes.gather_wavefronts("take", same) == (4 + 4, 1.0)
+    stride = (torch.arange(128, dtype=torch.int32) * 32 % 128)[None]  # lanes 0, 32, 64, 96, ...
+    assert probes.gather_wavefronts("take", stride) == (4 + 16, 4.0)
+    assert probes.gather_wavefronts("take_bf16", stride) == (4 + 8, 2.0)
+    assert probes.gather_wavefronts("take", torch.arange(128, dtype=torch.int32)[None]) == (8, 1.0)
+
+
+def _counter(lo, hi):
+    """The kernel's float counter for iterations lo..hi-1: a group base fb,
+    the float32 sum of UNROLL.0f per group, plus the constant k < UNROLL."""
+    g = np.arange(lo // U, -(-hi // U))
+    fb = np.concatenate([[0], np.cumsum(np.full(g[-1], U, np.float32), dtype=np.float32)])[g]
+    fi = (fb[:, None] + np.arange(U, dtype=np.float32)[None]).astype(np.float32).ravel()
+    return fi[lo - g[0] * U: hi - g[0] * U]
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 1 << 20), ((1 << 24) - (1 << 16), probes.MAX_N)])
+def test_float_counter_is_exact(lo, hi):
+    """fb + k, with fb incremented by UNROLL.0f a group, is float32(i) for
+    every i below a large n and at the top of the range below 2^24; so is
+    the tail's fi += 1.0f from the last group's base."""
+    i = np.arange(lo, hi)
+    np.testing.assert_array_equal(_counter(lo, hi), i.astype(np.float32))
+    fi = np.float32(hi - U)
+    for t in range(U):
+        assert fi == np.float32(hi - U + t)
+        fi = np.float32(fi + np.float32(1.0))
+
+
+def _small_uint_to_float(k):
+    """csrc/probes.cu small_uint_to_float: the bits 0x4B000000 | k are the
+    float 2^23 + k; subtracting 2^23 leaves k exactly."""
+    return (np.uint32(0x4B000000) | k.astype(np.uint32)).view(np.float32) - np.float32(8388608.0)
+
+
+@pytest.mark.parametrize("case", ["every_half", "unpack_of_loop_values"])
+def test_exponent_bits_conversion(case):
+    """The exponent-bits conversion is float(k) for all 65,536 16-bit
+    halves, and the kernel's unpack built on it is the plain version's on
+    the rows the loop gathers."""
+    if case == "every_half":
+        k = np.arange(1 << 16, dtype=np.uint32)
+        np.testing.assert_array_equal(_small_uint_to_float(k), k.astype(np.float32))
+        return
+    _, _, xt, _ = _inputs()
+    for i in (0.0, 1.0, 255.0, 33999.0, float((1 << 24) - 1)):
+        g = xt + i
+        u = g.numpy().view(np.uint32)
+        got = _small_uint_to_float(u & 0xFFFF) + _small_uint_to_float(u >> 16)
+        np.testing.assert_array_equal(got, probes._packed_unpack(g).numpy())
+
+
+def _bf16_rn_high(v):
+    """The float32 bits rounded to bf16, nearest even, by integer operations
+    (finite v): the rounding of the kernel's cvt.rn.bf16x2.f32 and
+    cvt.rn.bf16.f32, modelled for _grouped_loop."""
+    u = np.asarray(v, np.float32).view(np.uint32)
+    return (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) & np.uint32(0xFFFF0000)
+
+
+def _ties():
+    """Floats exactly halfway between two bf16 values: bf16 bits b (even and
+    odd) with 0x8000 below them, both signs, up to the one that rounds to
+    infinity; and the float32 extremes."""
+    b = np.array([0x0000, 0x0001, 0x3F80, 0x3F81, 0x4300, 0x4301, 0x7F7E, 0x7F7F, 0x0080], np.uint32)
+    u = np.concatenate([(b << 16) | 0x8000, ((b | 0x8000) << 16) | 0x8000])
+    extremes = np.array([0x7F7FFFFF, 0xFF7FFFFF, 0x00000001, 0x7F800000, 0xFF800000], np.uint32)
+    return np.concatenate([u, extremes]).view(np.float32)
+
+
+@pytest.mark.parametrize("case", ["counters", "sums", "ties"])
+def test_integer_bf16_rounding_matches_torch(case):
+    """The integer model of nearest-even rounding is torch's float32 →
+    bfloat16 for the counters the loop rounds (every i < 2^17 and near
+    2^24), for the sums it rounds (x0 + bf16(i) of the seed-0 bf16 tile) and
+    for ties, so the model below rounds as the kernel does."""
+    if case == "counters":
+        v = np.concatenate([np.arange(1 << 17), np.arange(probes.MAX_N - 4096, probes.MAX_N)]).astype(np.float32)
+    elif case == "sums":
+        x0 = _inputs(jnp.bfloat16)[2].float().numpy().ravel()
+        ib = np.array([probes._bf16(float(i)) for i in range(0, 40000, 97)], np.float32)
+        v = (x0[None] + ib[:, None]).astype(np.float32).ravel()
+    else:
+        v = _ties()
+    want = torch.from_numpy(v).to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    np.testing.assert_array_equal(_bf16_rn_high(v) >> 16, want.astype(np.uint32))
+
+
+def _row_ops(body, x, j):
+    """(put, load, value) of a staged body in csrc/probes.cu, on torch rows:
+    what one iteration stores, what its gather reads, what is added to acc."""
+    gather = functools.partial(torch.gather, dim=-1, index=j)
+    if body == "take_bf16":
+        xf = x.float()
+
+        def put(fi):
+            ib = float(_bf16_rn_high([fi]).view(np.float32)[0])
+            v = (xf + ib).numpy()
+            return torch.from_numpy((_bf16_rn_high(v) >> 16).astype(np.int64))
+
+        return put, gather, lambda v: torch.from_numpy((v.numpy().astype(np.uint32) << 16).view(np.float32))
+    if body == "two_takes":
+        xm = x * probes._MUL
+        return (lambda fi: (x + fi, xm + fi), lambda s: (gather(s[0]), gather(s[1])),
+                lambda v: v[0] + v[1])
+    if body == "packed_take_unpack":
+        def unpack(v):
+            u = v.numpy().view(np.uint32)
+            return torch.from_numpy(_small_uint_to_float(u & 0xFFFF) + _small_uint_to_float(u >> 16))
+
+        return (lambda fi: x + fi), gather, unpack
+    return (lambda fi: x + fi), gather, (lambda v: v)
+
+
+def _grouped_loop(body, x, idx, n):
+    """A Python model of csrc/probes.cu's loops. Staged bodies: stage groups
+    of UNROLL iterations, each stored into one of two alternating buffer
+    sets, then gathered after the group's barrier, its values added to acc
+    after the next group's gathers; the n mod UNROLL iterations left over
+    as one short group at the end. A set is stored only after its last
+    gathers were a barrier back (the barrier of the group before). mul and
+    where: the loop
+    unrolled by UNROLL with its fi += 1 tail. Both with the float counter."""
+    j = idx.clamp(0, 127).long()
+    acc = torch.zeros(x.shape, dtype=torch.float32)
+    full, rem = divmod(n, U)
+    fb = np.float32(0.0)
+    if probes.STAGED_ROWS[body] == 0:
+        g = probes._G[body]
+        for _ in range(full):
+            for k in range(U):
+                acc = acc + g(x, j, float(np.float32(fb + np.float32(k))), acc)
+            fb = np.float32(fb + np.float32(U))
+        fi = fb
+        for _ in range(rem):
+            acc = acc + g(x, j, float(fi), acc)
+            fi = np.float32(fi + np.float32(1.0))
+        return acc
+    put, load, value = _row_ops(body, x, j)
+    stage, last_read, held = [[None] * U, [None] * U], [-2, -2], []
+    for grp in range(full + (rem > 0)):
+        count, s = (U if grp < full else rem), grp % 2
+        assert last_read[s] <= grp - 2  # read in group grp - 2, before the barrier of grp - 1
+        for k in range(count):
+            stage[s][k] = put(float(np.float32(fb + np.float32(k))))
+        fb = np.float32(fb + np.float32(U))
+        got = [load(stage[s][k]) for k in range(count)]
+        last_read[s] = grp
+        for v in held:
+            acc = acc + value(v)
+        held = got
+    for v in held:
+        acc = acc + value(v)
+    return acc
+
+
+@pytest.mark.parametrize("n", range(2 * U + 2))
+@pytest.mark.parametrize("body", probes.BODIES)
+def test_grouped_loop_model_matches_the_plain_loop(body, n):
+    """The kernel's order of operations (stage groups of UNROLL, each added
+    after the next group's gathers, the short last group, the float counter,
+    the roundings and the exponent-bits unpack) gives the plain loop's acc
+    bit for bit, for every n from 0 to 2U + 1."""
+    dtype = jnp.bfloat16 if body == "take_bf16" else jnp.float32
+    _, _, xt, it = _inputs(dtype)
+    got = _grouped_loop(body, xt, it, n)
+    assert torch.equal(got, probes.loop_probe_reference(body, xt, it, n))

@@ -112,12 +112,32 @@ def test_trace_to_writes_a_chrome_trace(tmp_path):
 
 
 def test_card_timers_refuse_the_cpu(monkeypatch):
-    """event_ms and slope_ms time the card only: without CUDA they raise."""
+    """event_ms, slope_ms and graph_ms time the card only: without CUDA they
+    raise (graph_ms before it calls the function)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="times the card"):
         tprof.event_ms(lambda: None)
     with pytest.raises(RuntimeError, match="times the card"):
         tprof.slope_ms(lambda n: (lambda: None), 1, 2)
+    calls = []
+    with pytest.raises(RuntimeError, match="times the card"):
+        tprof.graph_ms(lambda: calls.append(1))
+    assert calls == []
+
+
+def test_sm_clocks_read_nvidia_smi(monkeypatch):
+    """sm_clocks_mhz asks nvidia-smi for card `index`'s clocks.sm and
+    clocks.max.sm, without units, and returns them as floats."""
+    seen = []
+
+    def run(cmd, **kw):
+        seen.append(cmd)
+        return types.SimpleNamespace(stdout="1755, 1980\n")
+
+    monkeypatch.setattr(tprof.subprocess, "run", run)
+    assert tprof.sm_clocks_mhz(2) == (1755.0, 1980.0)
+    assert seen == [["nvidia-smi", "--id=2", "--query-gpu=clocks.sm,clocks.max.sm",
+                     "--format=csv,noheader,nounits"]]
 
 
 def test_slope_ms_refuses_a_folded_loop(monkeypatch):
