@@ -97,6 +97,9 @@ SELECT_CARD_CPU_EPE = 1e-3  # px, mean: the 'select' flow on the card vs the CPU
 # demo_out/601_3.avi, which the port's decoder reproduces (pinned also by
 # tests/test_torch_fastio.py).
 DEMO_NATIVE_SHA256 = "8211c98448d3e3118b9fe63779819b6f1e6e79aa5f1e188ae8c5d07e405a627e"
+# cv2's JPEG quality of the native phase's clip re-encoded baseline and
+# progressive (4:2:0 both).
+REENCODE_QUALITY = 90
 
 
 def check(cond: bool, msg: str) -> None:
@@ -546,6 +549,142 @@ def counted_decoders(pairs: dict):
             setattr(module, attr, real[name])
 
 
+def write_mjpeg_avi(path: str, jpegs: list[bytes], h: int, w: int, fps: int = 30) -> None:
+    """An MJPEG AVI of the given JPEG frames: RIFF 'AVI ' with the hdrl
+    header (avih, one 'vids' 'MJPG' stream), a movi LIST of '00dc' chunks
+    and an idx1 index, enough for the native decoder and for cv2's."""
+    import struct
+
+    def chunk(tag, data):
+        return tag + struct.pack("<I", len(data)) + data + b"\0" * (len(data) & 1)
+
+    def group(kind, body):
+        return b"LIST" + struct.pack("<I", 4 + len(body)) + kind + body
+
+    n, largest = len(jpegs), max(len(j) for j in jpegs)
+    avih = struct.pack("<14I", 1_000_000 // fps, 0, 0, 0x10, n, 0, 1, largest, w, h, 0, 0, 0, 0)
+    strh = b"vidsMJPG" + struct.pack("<IHHIIIIIIIIhhhh", 0, 0, 0, 0, 1, fps, 0, n, largest, 0xFFFFFFFF, 0,
+                                     0, 0, w, h)
+    strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, b"MJPG", w * h * 3, 0, 0, 0, 0)
+    hdrl = group(b"hdrl", chunk(b"avih", avih) + group(b"strl", chunk(b"strh", strh) + chunk(b"strf", strf)))
+    movi, index, offset = [], [], 4
+    for j in jpegs:
+        movi.append(chunk(b"00dc", j))
+        index.append(b"00dc" + struct.pack("<III", 0x10, offset, len(j)))  # AVIIF_KEYFRAME
+        offset += len(movi[-1])
+    body = hdrl + group(b"movi", b"".join(movi)) + chunk(b"idx1", b"".join(index))
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 4 + len(body)) + b"AVI " + body)
+
+
+def jpeg_sof(jpeg: bytes) -> int:
+    """The SOF marker of a JPEG (0xC0 baseline, 0xC2 progressive, ...)."""
+    i = 2
+    while not (0xC0 <= jpeg[i + 1] <= 0xCF and jpeg[i + 1] not in (0xC4, 0xC8, 0xCC)):
+        i += 2 + int.from_bytes(jpeg[i + 2 : i + 4], "big")
+    return jpeg[i + 1]
+
+
+def native_progressive_checks(dev, stamp: str, frames: np.ndarray, cfg, tmp: str, host: str) -> dict:
+    """Phase 5m, progressive frames (SOF2): `frames` re-encoded by cv2 at
+    REENCODE_QUALITY, 4:2:0, baseline and progressive, each clip muxed by
+    write_mjpeg_avi. The progressive clip decodes natively to the baseline
+    clip's bytes at 1 thread and at every core, within 5 codes (mean < 1) of
+    cv2's decode of it; process_video_stream(native=True) on it, with the
+    launches and the pairs through each decoder counted, gives the baseline
+    clip's native stream's tables bitwise. Then decode frames/s (native
+    progressive at every core and 1 thread, native baseline at both, cv2 of
+    the progressive clip) and the native stream's pairs/s on both clips, in
+    turns. Returns the progressive stream's launches."""
+    import cv2
+
+    from opticalflowclustering_tpu_torch.io import fastio
+    from opticalflowclustering_tpu_torch.io import video as io_video
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.pipeline.bounce import process_video_stream
+
+    cores = os.cpu_count() or 1
+    n, h, w = frames.shape[:3]
+    params = [cv2.IMWRITE_JPEG_QUALITY, REENCODE_QUALITY,
+              cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420]
+    paths, sizes = {}, {}
+    for kind, progressive in (("baseline", 0), ("progressive", 1)):
+        jpegs = []
+        for f in frames:
+            ok, buf = cv2.imencode(".jpg", f, params + [cv2.IMWRITE_JPEG_PROGRESSIVE, progressive])
+            check(ok, f"cv2 did not encode a {kind} frame")
+            jpegs.append(buf.tobytes())
+        sofs = {jpeg_sof(j) for j in jpegs}
+        check(sofs == {0xC2 if progressive else 0xC0}, f"{kind} clip: SOF markers {sorted(map(hex, sofs))}")
+        paths[kind] = os.path.join(tmp, f"{kind}.avi")
+        write_mjpeg_avi(paths[kind], jpegs, h, w)
+        sizes[kind] = sum(map(len, jpegs))
+    decoded = {}
+    for kind, path in paths.items():
+        one = fastio.decode_mjpeg_avi(path, threads=1)
+        check(one.shape == frames.shape, f"{kind} clip: native decode {one.shape}")
+        check(np.array_equal(one, fastio.decode_mjpeg_avi(path, threads=cores)),
+              f"{kind} clip: 1 thread and {cores} threads decode differently")
+        decoded[kind] = one
+    check(np.array_equal(decoded["progressive"], decoded["baseline"]),
+          "the progressive clip decodes natively to other bytes than the baseline clip")
+    ref = io_video.read_video_bgr(paths["progressive"])
+    check(ref.shape == frames.shape, f"progressive clip: cv2 decode {ref.shape}")
+    gap = np.abs(decoded["progressive"].astype(np.int16) - ref.astype(np.int16))
+    check(int(gap.max()) <= 5 and float(gap.mean()) < 1.0,
+          f"progressive clip: native vs cv2 largest gap {int(gap.max())}, mean {float(gap.mean())}")
+    check(np.array_equal(io_video.read_video_bgr(paths["progressive"], native=True), decoded["progressive"]),
+          "progressive clip: read_video_bgr(native=True)")
+    print(f"native decode of {n} {w}x{h} frames re-encoded by cv2 {cv2.__version__} at quality "
+          f"{REENCODE_QUALITY} 4:2:0, baseline ({sizes['baseline']} bytes of JPEG) and progressive SOF2 "
+          f"({sizes['progressive']} bytes): progressive = baseline bitwise at 1 and {cores} threads; progressive "
+          f"vs cv2 largest gap {int(gap.max())} codes, mean {float(gap.mean()):.4f} (contract <= 5, < 1)")
+
+    want = process_video_stream(paths["baseline"], cfg, None, True, device=dev)
+    kw.reset_launches()
+    with counted_decoders({}) as pairs:
+        got = process_video_stream(paths["progressive"], cfg, None, True, device=dev)
+    sync(dev)
+    launches = dict(kw.LAUNCHES)
+    runs = kernel_runs(n - 1, cfg.chunk, h, w, cfg.flow)
+    check(launches == {"warp_m": runs, "box_solve": runs},
+          f"progressive native stream: expected {runs} launches of each kernel, got {launches}")
+    check(pairs == {"native": n - 1, "cv2": 0},
+          f"progressive native stream: pairs by decoder {pairs}, expected {n - 1} native")
+    for k in ("hue_table", "rgb_hue_table", "centroids", "mean_magnitude"):
+        check(np.array_equal(np.asarray(got[k]), np.asarray(want[k])),
+              f"progressive native stream {k}: not bitwise the baseline clip's")
+    print(f"native stream of the progressive clip {n}x{h}x{w} warp_mode={cfg.flow.warp_mode}: launches {launches} "
+          f"(design {runs}); {pairs['native'] + 1} frames through the native decoder, {pairs['cv2']} through "
+          f"cv2; tables bitwise equal to the baseline clip's native stream")
+
+    decoders = {f"progressive native {cores} threads": lambda: fastio.decode_mjpeg_avi(paths["progressive"],
+                                                                                       threads=cores),
+                "progressive native 1 thread": lambda: fastio.decode_mjpeg_avi(paths["progressive"], threads=1),
+                f"baseline native {cores} threads": lambda: fastio.decode_mjpeg_avi(paths["baseline"],
+                                                                                    threads=cores),
+                "baseline native 1 thread": lambda: fastio.decode_mjpeg_avi(paths["baseline"], threads=1),
+                "progressive cv2": lambda: io_video.read_video_bgr(paths["progressive"])}
+    times = {k: [] for k in decoders}
+    for _ in range(REPEATS):
+        for k, fn in decoders.items():
+            times[k].append(timed_s(dev, fn))
+    rates = ", ".join(f"{k} {n / float(np.median(v)):.1f}" for k, v in times.items())
+    print(f"time decode re-encoded {w}x{h} clip ({n} frames, quality {REENCODE_QUALITY} 4:2:0), frames/s: "
+          f"{rates} (median of {REPEATS}, in turns; {host}) {stamp}")
+    streams = {kind: lambda path=path: process_video_stream(path, cfg, None, True, device=dev)
+               for kind, path in paths.items()}
+    times = {k: [] for k in streams}
+    for _ in range(REPEATS):
+        for k, fn in streams.items():
+            times[k].append(timed_s(dev, fn))
+    for k, ts in times.items():
+        print(f"time stream {n}x{h}x{w} native decode of the {k} clip (decode included): "
+              f"{(n - 1) / float(np.median(ts)):.2f} pairs/s (median of {REPEATS}, in turns, runs "
+              f"{', '.join(f'{t:.3f}' for t in ts)} s; {host}) {stamp}")
+    return launches
+
+
 def native_decode_phase(dev, stamp: str, frames: np.ndarray, cfg) -> dict:
     """Phase 5m: the native MJPEG decoder (io.fastio over the port's
     native/fastio.cpp, built from the checkout with g++ alone) and its
@@ -558,8 +697,10 @@ def native_decode_phase(dev, stamp: str, frames: np.ndarray, cfg) -> dict:
     launches and the pairs through each decoder counted: its tables equal
     process_frames' of the natively decoded frames on the card. Then decode
     frames/s (native at every core and at 1 thread, cv2) on both clips, and
-    stream pairs/s native and cv2, in turns. Returns the native stream's
-    launches."""
+    stream pairs/s native and cv2, in turns. Then the progressive frames'
+    checks and times (native_progressive_checks). Returns the launches of
+    the native stream and of the progressive clip's native stream, by
+    path."""
     import hashlib
     import tempfile
 
@@ -635,7 +776,8 @@ def native_decode_phase(dev, stamp: str, frames: np.ndarray, cfg) -> dict:
         for k, ts in times.items():
             print(f"time stream {n}x{h}x{w} {k} decode (decode included): {(n - 1) / float(np.median(ts)):.2f} pairs/s "
                   f"(median of {REPEATS}, in turns, runs {', '.join(f'{t:.3f}' for t in ts)} s; {host}) {stamp}")
-    return launches
+        progressive = native_progressive_checks(dev, stamp, frames, cfg, tmp, host)
+    return {"native_stream": launches, "native_stream_progressive": progressive}
 
 
 def epe_phase(dev, stamp: str, frames: np.ndarray) -> int:
@@ -2053,10 +2195,10 @@ def main() -> int:
     path_launches.update(temporal_phase(dev, np.stack([frames[:16], frames[16:32]]), fast))
     findcosine_phase(series.cpu().numpy(), 20, 5)
 
-    # Phase 5m: the native MJPEG decoder and its stream at 1280x720, the
-    # stream run with the launch counts set to 0 just before and read just
-    # after.
-    path_launches["native_stream"] = native_decode_phase(dev, stamp, frames, fast)
+    # Phase 5m: the native MJPEG decoder and its stream at 1280x720, on
+    # baseline and on progressive frames, each stream run with the launch
+    # counts set to 0 just before and read just after.
+    path_launches.update(native_decode_phase(dev, stamp, frames, fast))
 
     # Phases 5n-5q: EPE against cv2 and the grid CLIs at 1280x720, each run
     # with the launch counts set to 0 just before and read just after.

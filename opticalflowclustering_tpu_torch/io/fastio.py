@@ -3,8 +3,11 @@
 MJPEG-AVI demux/decode into one [N, H, W, 3] uint8 BGR buffer.
 
 The runtime is the port's own `native/fastio.cpp`, which links no codec
-library: its baseline JPEG decoder gives the frames of the JAX package's
-libjpeg-turbo configuration bit for bit, and its PNG decoder libpng's. It is
+library: its JPEG decoder gives the frames of the JAX package's libjpeg-turbo
+configuration bit for bit, for 8-bit Huffman frames, sequential (SOF0, SOF1)
+and progressive (SOF2, block smoothing of a frame cut short included), and
+its PNG decoder libpng's. Arithmetic-coded, lossless and 12-bit frames raise
+ValueError naming their SOF. It is
 compiled with g++ alone at first use, never at import, into
 `<repo>/.torch_ext_build/fastio/`, under a name keyed on a sha256 of the
 source, the compiler's version and the command. One process builds while it
@@ -159,7 +162,7 @@ def _decode_error(rc: int, what: str, path: str) -> ValueError:
         kind = _SOF_KINDS.get(sof, "sequential Huffman")
         return ValueError(
             f"{what} failed: unsupported JPEG frame SOF{sof - 0xC0} ({kind}, {precision}-bit) in "
-            f"{path}; the decoder takes 8-bit sequential Huffman frames (SOF0, SOF1)")
+            f"{path}; the decoder takes 8-bit Huffman frames (SOF0, SOF1, SOF2)")
     return ValueError(f"{what} failed (rc={rc}): {path}")
 
 

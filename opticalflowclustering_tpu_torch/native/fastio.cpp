@@ -14,7 +14,8 @@
 //   * markers as jdmarker.c reads them from a memory source, which feeds
 //     fake EOI markers (FF D9 FF D9 ...) past the end of the data;
 //   * Huffman decode as jdhuff.c, with the standard tables of ITU-T T.81
-//     Annex K.3 where a frame carries no DHT (jstdhuff.c: MJPEG omits them);
+//     Annex K.3 where a sequential frame carries no DHT (jstdhuff.c: MJPEG
+//     omits them; the progressive decoder fills none);
 //     a segment that runs out of data decodes as zero bits, and its later
 //     MCUs as zero blocks, until the next restart marker;
 //   * the ISLOW IDCT as the library runs it on x86 (idct_islow below);
@@ -23,9 +24,15 @@
 //   * YCbCr -> BGR with jdcolor.c's fixed-point tables (SCALEBITS 16);
 //   * the colour space guessed as jdapimin.c does (JFIF, Adobe transform,
 //     component ids); greyscale replicated to BGR.
-// It takes 8-bit Huffman sequential frames (SOF0, SOF1) only. Any other
-// frame returns kErrSof minus (precision << 8 | SOF marker), so that the
-// caller can name it.
+//   * progressive frames (SOF2) as jdphuff.c decodes them into a whole
+//     frame of coefficients: the DC and AC first scans and their
+//     successive-approximation refinements, EOB runs, the scan header's
+//     checks; then, before the IDCT, jdcoefct.c's block smoothing (on by
+//     default in libjpeg), which predicts the low coefficients that the
+//     frame's scans have not yet given in full (a frame cut short).
+// It takes 8-bit Huffman frames (SOF0, SOF1, SOF2). Any other frame
+// returns kErrSof minus (precision << 8 | SOF marker), so that the caller
+// can name it.
 //
 // The PNG decoder reproduces libpng with the transforms the JAX decoder
 // asks for: strip_16, palette_to_rgb, expand_gray_1_2_4_to_8,
@@ -264,6 +271,11 @@ struct Bits {
     int v = static_cast<int>(peek(k));
     skip(k);
     return v;
+  }
+
+  int bit() {
+    if (n < 32) fill();
+    return get(1);
   }
 
   // Forget the bits left in the buffer (at a restart or the end of a scan).
@@ -505,7 +517,7 @@ struct Component {
   int id, h, v, tq;
   int dc_tbl = 0, ac_tbl = 0;
   bool latched = false;  // its quant table, copied at its first scan
-  int16_t qt[64];
+  int16_t qt[64] = {};
   int stride = 0;  // plane width, a whole number of MCUs
   std::vector<uint8_t> plane;
 };
@@ -533,6 +545,15 @@ struct Jpeg {
   int pending = 0;  // a marker the entropy decoder stopped at
   int scan_comps[4];
   int ns = 0;
+  int ss = 0, se = 63, ah = 0, al = 0;  // the scan's band and approximation
+  // A progressive frame's coefficients: per component, blocks of 64 in
+  // natural order over its whole-MCU block grid (the stride of its plane
+  // over 8). coef_bits is jdphuff.c's: per coefficient, the Al of the last
+  // scan that gave it, -1 before any; prev_bits, its values when the
+  // component's last scan began.
+  std::vector<std::vector<int16_t>> coefs;
+  int coef_bits[10][64], prev_bits[10][64];  // a frame has at most 10 components
+  int last_good_row = 0;  // jdcoefct.c's last_good_iMCU_row
 
   Jpeg(const uint8_t* d, size_t n) : data(d), size(n) {}
 
@@ -648,7 +669,13 @@ struct Jpeg {
       comps[ci].dc_tbl = t >> 4;
       comps[ci].ac_tbl = t & 15;
     }
-    skip(3);  // Ss, Se, Ah/Al: a sequential decoder only warns on odd ones
+    // a sequential decoder only warns on odd ones; a progressive one
+    // checks them (start_progressive_scan)
+    ss = u8();
+    se = u8();
+    const int a = u8();
+    ah = a >> 4;
+    al = a & 15;
     return true;
   }
 
@@ -756,28 +783,32 @@ struct Jpeg {
     return m;
   }
 
+  // A component's own extent in blocks (jdinput.c width_in_blocks,
+  // height_in_blocks): its MCU padding excluded.
+  int blocks_wide(const Component& c) const { return (width * c.h + 8 * hmax - 1) / (8 * hmax); }
+  int blocks_high(const Component& c) const { return (height * c.v + 8 * vmax - 1) / (8 * vmax); }
+
+  // The MCU grid of the scan just read (jdinput.c per_scan_setup): a
+  // non-interleaved scan's MCU is one block, over its component's own
+  // extent; an interleaved scan's is the frame's, of at most 10 blocks.
+  bool scan_grid(int* mcus_x, int* mcus_y) const {
+    if (ns == 1) {
+      *mcus_x = blocks_wide(comps[scan_comps[0]]);
+      *mcus_y = blocks_high(comps[scan_comps[0]]);
+      return true;
+    }
+    int blocks = 0;
+    for (int i = 0; i < ns; ++i) blocks += comps[scan_comps[i]].h * comps[scan_comps[i]].v;
+    *mcus_x = (width + 8 * hmax - 1) / (8 * hmax);
+    *mcus_y = (height + 8 * vmax - 1) / (8 * vmax);
+    return blocks <= 10;
+  }
+
   // Decode the entropy-coded data of the scan just read, block by block
   // into the planes.
   int decode_scan(const HuffTable* dct, const HuffTable* act) {
-    const int nmcu_x = (width + 8 * hmax - 1) / (8 * hmax);
-    const int nmcu_y = (height + 8 * vmax - 1) / (8 * vmax);
     int mcus_x, mcus_y;
-    if (ns == 1) {
-      const Component& c = comps[scan_comps[0]];
-      const int cw = (width * c.h + hmax - 1) / hmax;
-      const int ch = (height * c.v + vmax - 1) / vmax;
-      mcus_x = (cw + 7) / 8;
-      mcus_y = (ch + 7) / 8;
-    } else {
-      int blocks = 0;
-      for (int i = 0; i < ns; ++i) {
-        const Component& c = comps[scan_comps[i]];
-        blocks += c.h * c.v;
-      }
-      if (blocks > 10) return kErrFormat;
-      mcus_x = nmcu_x;
-      mcus_y = nmcu_y;
-    }
+    if (!scan_grid(&mcus_x, &mcus_y)) return kErrFormat;
     Bits b{data, size, pos};
     int preds[4] = {};
     int restarts_to_go = restart_interval, next_rst = 0;
@@ -817,12 +848,321 @@ struct Jpeg {
     return kOk;
   }
 
+  // ---- progressive frames (jdphuff.c, jdcoefct.c) ----
+
+  int16_t* block(int ci, int by, int bx) {
+    const Component& c = comps[ci];
+    return coefs[ci].data() + (static_cast<size_t>(by) * (c.stride / 8) + bx) * 64;
+  }
+
+  // jdphuff.c start_pass_phuff_decoder: check the scan's band and
+  // approximation, record what it gives in coef_bits (a scan out of order
+  // is only a warning there), and build the one table kind it reads.
+  bool start_progressive_scan(HuffTable* tbls) {
+    const bool dc_band = ss == 0;
+    bool bad = dc_band ? se != 0 : ss > se || se > 63 || ns != 1;
+    if (ah != 0 && al != ah - 1) bad = true;
+    if (bad || al > 13) return false;
+    for (int i = 0; i < ns; ++i) {
+      const int ci = scan_comps[i];
+      for (int k = ss < 1 ? ss : 1; k <= (se > 9 ? se : 9); ++k)
+        prev_bits[ci][k] = scans > 0 ? coef_bits[ci][k] : 0;
+      for (int k = ss; k <= se; ++k) coef_bits[ci][k] = al;
+    }
+    if (dc_band && ah != 0) return true;  // a DC refinement reads no table
+    for (int i = 0; i < ns; ++i) {
+      const Component& c = comps[scan_comps[i]];
+      const int t = dc_band ? c.dc_tbl : c.ac_tbl;
+      if (t >= 4) return false;
+      const HuffSpec& spec = dc_band ? dc[t] : ac[t];
+      if (!spec.defined || !build_table(spec, dc_band, &tbls[t])) return false;
+    }
+    return true;
+  }
+
+  // One MCU's blocks: fn(index in the scan, block).
+  template <typename Fn>
+  void mcu_blocks(int my, int mx, Fn fn) {
+    if (ns == 1) {
+      fn(0, block(scan_comps[0], my, mx));
+      return;
+    }
+    for (int i = 0; i < ns; ++i) {
+      const Component& c = comps[scan_comps[i]];
+      for (int yy = 0; yy < c.v; ++yy)
+        for (int xx = 0; xx < c.h; ++xx) fn(i, block(scan_comps[i], my * c.v + yy, mx * c.h + xx));
+    }
+  }
+
+  // The scan just read into the coefficients, MCU by MCU as jdphuff.c's
+  // decode_mcu_DC_first, _AC_first, _DC_refine and _AC_refine.
+  int decode_progressive_scan(const HuffTable* tbls) {
+    int mcus_x, mcus_y;
+    if (!scan_grid(&mcus_x, &mcus_y)) return kErrFormat;
+    Bits b{data, size, pos};
+    int preds[4] = {};
+    uint32_t eobrun = 0;
+    int restarts_to_go = restart_interval, next_rst = 0;
+    // a non-interleaved scan's iMCU row is v_samp_factor block rows
+    const int mcu_rows = ns == 1 ? comps[scan_comps[0]].v : 1;
+    const int p1 = 1 << al, m1 = -p1;
+    int16_t* blk = nullptr;
+    // Refinement bits for the nonzero coefficients at the zigzag positions
+    // in `mask`, one bit each in ascending order, read up to 16 at a time.
+    auto correct = [&](uint64_t mask) {
+      while (mask) {
+        int m = __builtin_popcountll(mask);
+        if (m > 16) m = 16;
+        if (b.n < 32) b.fill();
+        const uint32_t v = static_cast<uint32_t>(b.get(m));
+        for (int i = m - 1; i >= 0; --i) {
+          int16_t* coef = blk + kNatural[__builtin_ctzll(mask)];
+          mask &= mask - 1;
+          if ((v >> i & 1) && (*coef & p1) == 0) *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+        }
+      }
+    };
+    for (int my = 0; my < mcus_y; ++my) {
+      for (int mx = 0; mx < mcus_x; ++mx) {
+        if (!b.insufficient) last_good_row = my / mcu_rows;
+        if (restart_interval) {
+          if (restarts_to_go == 0) {
+            restart(b, &next_rst);
+            for (int& p : preds) p = 0;
+            eobrun = 0;
+            restarts_to_go = restart_interval;
+          }
+          --restarts_to_go;
+        }
+        if (ss == 0 && ah != 0) {
+          // the next bit of each DC; past the data they are zeros, which
+          // change nothing, so the library does not test for it
+          mcu_blocks(my, mx, [&](int, int16_t* dst) {
+            if (b.bit()) dst[0] = static_cast<int16_t>(dst[0] | p1);
+          });
+          continue;
+        }
+        if (b.insufficient) continue;  // the rest of the segment stays as it is
+        if (ss == 0) {
+          mcu_blocks(my, mx, [&](int i, int16_t* dst) {
+            const Component& c = comps[scan_comps[i]];
+            int s = huff_decode(b, tbls[c.dc_tbl]);
+            if (s) s = extend(b.get(s), s);
+            preds[i] = static_cast<int>(static_cast<uint32_t>(preds[i]) + static_cast<uint32_t>(s));
+            dst[0] = static_cast<int16_t>(static_cast<uint32_t>(preds[i]) << al);
+          });
+          continue;
+        }
+        blk = block(scan_comps[0], my, mx);
+        const HuffTable& t = tbls[comps[scan_comps[0]].ac_tbl];
+        if (ah == 0) {
+          if (eobrun) {
+            --eobrun;
+            continue;
+          }
+          for (int k = ss; k <= se; ++k) {
+            if (b.n < 32) b.fill();
+            const int32_t f = t.fast_ac[b.peek(kLook)];
+            if (f) {  // a code and its value's bits, resolved at once
+              b.skip(f & 0xFF);
+              k += (f >> 8) & 0xFF;
+              blk[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(f >> 16) << al);
+              continue;
+            }
+            const int rs = huff_decode(b, t), r = rs >> 4, s = rs & 15;
+            if (s) {
+              k += r;
+              blk[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(extend(b.get(s), s)) << al);
+            } else if (r == 15) {
+              k += 15;
+            } else {
+              eobrun = (1u << r) + (r ? b.get(r) : 0) - 1;
+              break;
+            }
+          }
+          continue;
+        }
+        // nz: the band's nonzero coefficients, by zigzag position; those
+        // at or past k are as they were when the block began
+        auto band = [](int lo, int hi) {  // zigzag positions lo..hi
+          return lo > hi ? 0 : (hi == 63 ? ~0ull : (2ull << hi) - 1) & ~((1ull << lo) - 1);
+        };
+        uint64_t nz = 0;
+        for (int k = ss; k <= se; ++k) nz |= static_cast<uint64_t>(blk[kNatural[k]] != 0) << k;
+        int k = ss;
+        if (eobrun == 0) {
+          for (; k <= se; ++k) {
+            const int rs = huff_decode(b, t);
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+              // a newly nonzero coefficient (its size should be 1)
+              s = b.bit() ? p1 : m1;
+            } else if (r != 15) {
+              eobrun = (1u << r) + (r ? b.get(r) : 0);
+              break;
+            }
+            // pass r zero coefficients and stop at the next, refining the
+            // nonzero ones on the way; past the band if it has too few
+            uint64_t zeros = ~nz & band(k, se);
+            for (; r > 0 && zeros; --r) zeros &= zeros - 1;
+            const int stop = zeros ? __builtin_ctzll(zeros) : se + 1;
+            correct(nz & band(k, stop - 1));
+            k = stop;
+            if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+          }
+        }
+        if (eobrun > 0) {
+          correct(nz & band(k, se));
+          --eobrun;
+        }
+      }
+    }
+    b.discard();
+    pos = b.pos;
+    pending = b.marker;
+    return kOk;
+  }
+
+  // jdcoefct.c smoothing_ok, after the last scan: smoothing runs when every
+  // component has its quantization table, nonzero at the DC and the nine
+  // lowest AC coefficients, has had its DC, and some of those nine are not
+  // yet known in full. It latches their coef_bits (now and at the start of
+  // the component's last scan) into bits[ci] and prev[ci].
+  bool smoothing_ok(int bits[][10], int prev[][10]) const {
+    bool useful = false;
+    for (size_t ci = 0; ci < comps.size(); ++ci) {
+      const Component& c = comps[ci];
+      if (!c.latched) return false;
+      for (int k = 0; k < 10; ++k)
+        if (c.qt[kNatural[k]] == 0) return false;
+      if (coef_bits[ci][0] < 0) return false;
+      for (int k = 1; k < 10; ++k) {
+        prev[ci][k] = scans > 1 ? prev_bits[ci][k] : -1;
+        bits[ci][k] = coef_bits[ci][k];
+        if (coef_bits[ci][k] != 0) useful = true;
+      }
+    }
+    return useful;
+  }
+
+  // jdcoefct.c decompress_smooth_data's estimate of one coefficient from
+  // the DC values around its block: num / (q << 8) rounded, and kept below
+  // 1 << al, the first bit the scans have not given yet.
+  static int16_t predict(int64_t num, int64_t q, int al) {
+    const bool neg = num < 0;
+    int pred = static_cast<int>(((q << 7) + (neg ? -num : num)) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    return static_cast<int16_t>(neg ? -pred : pred);
+  }
+
+  // The output pass of a progressive frame (jdcoefct.c decompress_data, or
+  // decompress_smooth_data when smoothing_ok): each component's own blocks
+  // through the IDCT into its plane, the smoothed ones from a copy.
+  void output_progressive() {
+    int latch[10][10], prev_latch[10][10];
+    const bool smooth = smoothing_ok(latch, prev_latch);
+    const int last_row = (height + 8 * vmax - 1) / (8 * vmax) - 1;  // iMCU rows
+    for (size_t ci = 0; ci < comps.size(); ++ci) {
+      Component& c = comps[ci];
+      const int bw = blocks_wide(c), bh = blocks_high(c);
+      auto out = [&](int by, int bx) {
+        return c.plane.data() + static_cast<size_t>(by) * 8 * c.stride + bx * 8;
+      };
+      if (!smooth) {
+        for (int by = 0; by < bh; ++by)
+          for (int bx = 0; bx < bw; ++bx) idct_islow(block(ci, by, bx), c.qt, out(by, bx), c.stride);
+        continue;
+      }
+      int64_t q[10];  // the quantization of zigzag coefficients 0..9
+      for (int k = 0; k < 10; ++k) q[k] = static_cast<uint16_t>(c.qt[kNatural[k]]);
+      alignas(16) int16_t ws[64];
+      for (int row = 0; row <= last_row; ++row) {
+        // an iMCU row past the last one the last scan reached with data
+        // takes the coefficient bits from before that scan
+        const int* cb = row > last_good_row ? prev_latch[ci] : latch[ci];
+        bool change_dc = true;
+        for (int k = 1; k < 10; ++k) change_dc &= cb[k] == -1;
+        int block_rows = c.v;
+        if (row == last_row) {
+          block_rows = bh % c.v;
+          if (block_rows == 0) block_rows = c.v;
+        }
+        for (int br = 0; br < block_rows; ++br) {
+          // the block rows two above to two below, as the library picks them
+          const int cur = row * c.v + br;
+          const int up = br > 0 || row > 0 ? cur - 1 : cur;
+          const int up2 = br > 1 || row > 1 ? cur - 2 : up;
+          const int down = br < block_rows - 1 || row < last_row ? cur + 1 : cur;
+          const int down2 = br < block_rows - 2 || row + 1 < last_row ? cur + 2 : down;
+          const int16_t* rows[5] = {block(ci, up2, 0), block(ci, up, 0), block(ci, cur, 0), block(ci, down, 0),
+                                    block(ci, down2, 0)};
+          // dc[r][x]: the DC of the block r - 2 rows down and x - 2 columns
+          // right, the nearest one inside the component where that is out
+          int dc[5][5];
+          for (int r = 0; r < 5; ++r)
+            for (int x = 0; x < 5; ++x) dc[r][x] = rows[r][0];
+          for (int bx = 0; bx < bw; ++bx) {
+            std::memcpy(ws, rows[2] + static_cast<size_t>(bx) * 64, sizeof ws);
+            if (bx == 0 && bx < bw - 1)
+              for (int r = 0; r < 5; ++r) dc[r][3] = rows[r][64];
+            if (bx + 1 < bw - 1)
+              for (int r = 0; r < 5; ++r) dc[r][4] = rows[r][static_cast<size_t>(bx + 2) * 64];
+            // the library's DC01..DC25, row by row
+            auto D = [&](int n) { return static_cast<int64_t>(dc[(n - 1) / 5][(n - 1) % 5]); };
+            // AC01, AC10, AC20, AC11, AC02 (and with change_dc AC03, AC12,
+            // AC21, AC30): estimated where the coefficient is still zero and
+            // not known in full
+            auto estimate = [&](int k, int pos, int64_t sum) {
+              if (cb[k] != 0 && ws[pos] == 0) ws[pos] = predict(q[0] * sum, q[k], cb[k]);
+            };
+            estimate(1, 1, change_dc ? -D(1) - D(2) + D(4) + D(5) - 3 * D(6) + 13 * D(7) - 13 * D(9) + 3 * D(10) -
+                                           3 * D(11) + 38 * D(12) - 38 * D(14) + 3 * D(15) - 3 * D(16) +
+                                           13 * D(17) - 13 * D(19) + 3 * D(20) - D(21) - D(22) + D(24) + D(25)
+                                     : -7 * D(11) + 50 * D(12) - 50 * D(14) + 7 * D(15));
+            estimate(2, 8, change_dc ? -D(1) - 3 * D(2) - 3 * D(3) - 3 * D(4) - D(5) - D(6) + 13 * D(7) +
+                                           38 * D(8) + 13 * D(9) - D(10) + D(16) - 13 * D(17) - 38 * D(18) -
+                                           13 * D(19) + D(20) + D(21) + 3 * D(22) + 3 * D(23) + 3 * D(24) + D(25)
+                                     : -7 * D(3) + 50 * D(8) - 50 * D(18) + 7 * D(23));
+            estimate(3, 16, change_dc ? D(3) + 2 * D(7) + 7 * D(8) + 2 * D(9) - 5 * D(12) - 14 * D(13) -
+                                            5 * D(14) + 2 * D(17) + 7 * D(18) + 2 * D(19) + D(23)
+                                      : -D(3) + 13 * D(8) - 24 * D(13) + 13 * D(18) - D(23));
+            estimate(4, 9, change_dc ? -D(1) + D(5) + 9 * D(7) - 9 * D(9) - 9 * D(17) + 9 * D(19) + D(21) - D(25)
+                                     : D(10) + D(16) - 10 * D(17) + 10 * D(19) - D(2) - D(20) + D(22) - D(24) +
+                                           D(4) - D(6) + 10 * D(7) - 10 * D(9));
+            estimate(5, 2, change_dc ? 2 * D(7) - 5 * D(8) + 2 * D(9) + D(11) + 7 * D(12) - 14 * D(13) +
+                                           7 * D(14) + D(15) + 2 * D(17) - 5 * D(18) + 2 * D(19)
+                                     : -D(11) + 13 * D(12) - 24 * D(13) + 13 * D(14) - D(15));
+            if (change_dc) {
+              estimate(6, 3, D(7) - D(9) + 2 * D(12) - 2 * D(14) + D(17) - D(19));
+              estimate(7, 10, D(7) - 3 * D(8) + D(9) - D(17) + 3 * D(18) - D(19));
+              estimate(8, 17, D(7) - D(9) - 3 * D(12) + 3 * D(14) + D(17) - D(19));
+              estimate(9, 24, D(7) + 2 * D(8) + D(9) - D(17) - 2 * D(18) - D(19));
+              // no AC has arrived: the DC itself from its 5x5 neighbourhood
+              ws[0] = predict(q[0] * (-2 * D(1) - 6 * D(2) - 8 * D(3) - 6 * D(4) - 2 * D(5) - 6 * D(6) +
+                                      6 * D(7) + 42 * D(8) + 6 * D(9) - 6 * D(10) - 8 * D(11) + 42 * D(12) +
+                                      152 * D(13) + 42 * D(14) - 8 * D(15) - 6 * D(16) + 6 * D(17) +
+                                      42 * D(18) + 6 * D(19) - 6 * D(20) - 2 * D(21) - 6 * D(22) - 8 * D(23) -
+                                      6 * D(24) - 2 * D(25)),
+                              q[0], 0);
+            }
+            idct_islow(ws, c.qt, out(cur, bx), c.stride);
+            for (int r = 0; r < 5; ++r)
+              for (int x = 0; x < 4; ++x) dc[r][x] = dc[r][x + 1];
+          }
+        }
+      }
+    }
+  }
+
   // Every scan, then the planes upsampled and colour-converted into out.
   int decode(uint8_t* out, int h, int w) {
     if (read_markers() != kOk) return kErrFormat;
-    if (sof != 0xC0 && sof != 0xC1) return kErrSof - (precision << 8 | sof);
+    if (sof != 0xC0 && sof != 0xC1 && sof != 0xC2) return kErrSof - (precision << 8 | sof);
     if (precision != 8) return kErrSof - (precision << 8 | sof);
-    if (width != w || height != h) return kErrShape;
+    // libjpeg reads a progressive frame's every scan before it can tell
+    // the caller its size, so a fault in a scan comes first there
+    const bool progressive = sof == 0xC2;
+    if (!progressive && (width != w || height != h)) return kErrShape;
     const int nc = static_cast<int>(comps.size());
     if (nc != 1 && nc != 3) return kErrFormat;  // libjpeg has no conversion of these to BGR
     // jdapimin.c's guess: JFIF means YCbCr, else Adobe's transform 0 or
@@ -841,26 +1181,39 @@ struct Jpeg {
       // that no scan reached
       c.plane.assign(static_cast<size_t>(c.stride) * nmcu_y * c.v * 8, 128);
     }
-    // libjpeg-turbo fills absent tables 0 and 1 with the standard ones when
-    // its Huffman decoder starts, after the first SOS (MJPEG frames omit
-    // them).
-    if (!dc[0].defined) set_spec(&dc[0], kStdDcLumaBits, kStdDcVals);
-    if (!ac[0].defined) set_spec(&ac[0], kStdAcLumaBits, kStdAcLumaVals);
-    if (!dc[1].defined) set_spec(&dc[1], kStdDcChromaBits, kStdDcVals);
-    if (!ac[1].defined) set_spec(&ac[1], kStdAcChromaBits, kStdAcChromaVals);
+    if (progressive) {
+      coefs.resize(nc);
+      for (int ci = 0; ci < nc; ++ci)
+        coefs[ci].assign(static_cast<size_t>(nmcu_x) * comps[ci].h * nmcu_y * comps[ci].v * 64, 0);
+      for (int ci = 0; ci < nc; ++ci)
+        for (int k = 0; k < 64; ++k) {
+          coef_bits[ci][k] = -1;
+          prev_bits[ci][k] = 0;
+        }
+    } else {
+      // libjpeg-turbo fills absent tables 0 and 1 with the standard ones
+      // when its sequential Huffman decoder starts, after the first SOS
+      // (MJPEG frames omit them).
+      if (!dc[0].defined) set_spec(&dc[0], kStdDcLumaBits, kStdDcVals);
+      if (!ac[0].defined) set_spec(&ac[0], kStdAcLumaBits, kStdAcLumaVals);
+      if (!dc[1].defined) set_spec(&dc[1], kStdDcChromaBits, kStdDcVals);
+      if (!ac[1].defined) set_spec(&ac[1], kStdAcChromaBits, kStdAcChromaVals);
+    }
     std::vector<HuffTable> tables(8);
     HuffTable* dct = tables.data();
     HuffTable* act = tables.data() + 4;
     for (;;) {
-      if (scans == 1 && sequential_once) return kErrFormat;
+      if (!progressive && scans == 1 && sequential_once) return kErrFormat;
       for (int i = 0; i < ns; ++i) {
         Component& c = comps[scan_comps[i]];
-        if (c.dc_tbl >= 4 || !dc[c.dc_tbl].defined ||
-            !build_table(dc[c.dc_tbl], true, &dct[c.dc_tbl]))
-          return kErrFormat;
-        if (c.ac_tbl >= 4 || !ac[c.ac_tbl].defined ||
-            !build_table(ac[c.ac_tbl], false, &act[c.ac_tbl]))
-          return kErrFormat;
+        if (!progressive) {
+          if (c.dc_tbl >= 4 || !dc[c.dc_tbl].defined ||
+              !build_table(dc[c.dc_tbl], true, &dct[c.dc_tbl]))
+            return kErrFormat;
+          if (c.ac_tbl >= 4 || !ac[c.ac_tbl].defined ||
+              !build_table(ac[c.ac_tbl], false, &act[c.ac_tbl]))
+            return kErrFormat;
+        }
         if (!c.latched) {
           if (c.tq >= 4 || !qt_defined[c.tq]) return kErrFormat;
           for (int k = 0; k < 64; ++k)
@@ -868,13 +1221,23 @@ struct Jpeg {
           c.latched = true;
         }
       }
-      if (scans == 0) sequential_once = ns == nc;
-      int rc = decode_scan(dct, act);
+      int rc;
+      if (progressive) {
+        if (!start_progressive_scan(dct)) return kErrFormat;
+        rc = decode_progressive_scan(dct);
+      } else {
+        if (scans == 0) sequential_once = ns == nc;
+        rc = decode_scan(dct, act);
+      }
       if (rc != kOk) return rc;
       ++scans;
       rc = read_markers();
       if (rc == 1) break;
       if (rc != kOk) return rc;
+    }
+    if (progressive) {
+      if (width != w || height != h) return kErrShape;
+      output_progressive();
     }
     convert(out, space);
     return kOk;

@@ -464,22 +464,22 @@ def test_stream_stalls_at_a_corrupt_frame(tmp_path):
         fastio.decode_mjpeg_avi(path)
 
 
-@pytest.mark.parametrize("kind", ["progressive", "SOF9", "SOF3", "12-bit"])
+@pytest.mark.parametrize("kind", ["SOF10", "SOF9", "SOF3", "12-bit"])
 def test_unsupported_frames_raise_naming_their_sof(kind, tmp_path):
-    """Progressive, arithmetic-coded, lossless and 12-bit frames probe (so
-    the native route takes their AVI) but do not decode: ValueError naming
-    the SOF, from the batch and from the stream."""
-    if kind == "progressive":
-        ok, buf = cv2.imencode(".jpg", _image(24, 32, 0), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-        jpeg, want = buf.tobytes(), r"SOF2 \(progressive, 8-bit\)"
-    else:
-        jpeg = bytearray(_encode(24, 32, 0))
-        at = jpeg.index(b"\xff\xc0")
-        marker, precision, want = {"SOF9": (0xC9, 8, r"SOF9 \(arithmetic sequential, 8-bit\)"),
-                                   "SOF3": (0xC3, 8, r"SOF3 \(lossless, 8-bit\)"),
-                                   "12-bit": (0xC1, 12, r"SOF1 \(sequential Huffman, 12-bit\)")}[kind]
-        jpeg[at + 1], jpeg[at + 4] = marker, precision
-        jpeg = bytes(jpeg)
+    """Arithmetic-coded (sequential and progressive), lossless and 12-bit
+    frames probe (so the native route takes their AVI) but do not decode:
+    ValueError naming the SOF and the frames the decoder takes, from the
+    batch and from the stream. (Progressive Huffman frames, SOF2, decode:
+    tests/test_torch_fastio_progressive.py.)"""
+    jpeg = bytearray(_encode(24, 32, 0))
+    at = jpeg.index(b"\xff\xc0")
+    marker, precision, want = {"SOF10": (0xCA, 8, r"SOF10 \(arithmetic progressive, 8-bit\)"),
+                               "SOF9": (0xC9, 8, r"SOF9 \(arithmetic sequential, 8-bit\)"),
+                               "SOF3": (0xC3, 8, r"SOF3 \(lossless, 8-bit\)"),
+                               "12-bit": (0xC1, 12, r"SOF1 \(sequential Huffman, 12-bit\)")}[kind]
+    jpeg[at + 1], jpeg[at + 4] = marker, precision
+    jpeg = bytes(jpeg)
+    want += r" in .*; the decoder takes 8-bit Huffman frames \(SOF0, SOF1, SOF2\)"
     path = _avi(tmp_path / "u.avi", [jpeg, jpeg])
     assert fastio.probe_mjpeg_avi(path) == (2, 24, 32)
     with pytest.raises(ValueError, match="unsupported JPEG frame " + want):

@@ -805,7 +805,12 @@ def test_chip_smoke_native_decode_phase_rehearsal(monkeypatch, capsys):
     at 1 thread and at every core, the demo clip to its pinned digest,
     the native stream's launches are 2 chunks × 4 levels × 3 iterations, all
     its 6 pairs came through the native decoder (none through cv2), and
-    both decoders and both streams are timed; the decoders are put back."""
+    both decoders and both streams are timed; then the clip re-encoded
+    baseline and progressive: the progressive clip decodes to the baseline
+    clip's bytes, within 5 codes of cv2, and its native stream makes the
+    same launches through the native decoder alone, with the baseline
+    clip's tables; both decoders on both clips and both streams are timed.
+    The decoders are put back."""
     from opticalflowclustering_tpu_torch.io import fastio
     from opticalflowclustering_tpu_torch.io import video as io_video
     from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
@@ -814,7 +819,8 @@ def test_chip_smoke_native_decode_phase_rehearsal(monkeypatch, capsys):
     real = (fastio.stream_mjpeg_avi, io_video.stream_video_chunks)
     cfg = bounce.PipelineConfig(chunk=4, flow=bounce.FarnebackParams(warp_mode="fast"))
     launches = chip_smoke.native_decode_phase(torch.device("cpu"), "[cpu rehearsal]", synth_frames(7, 288, 512), cfg)
-    assert launches == {"warp_m": 24, "box_solve": 24}
+    runs = {"warp_m": 24, "box_solve": 24}
+    assert launches == {"native_stream": runs, "native_stream_progressive": runs}
     assert (fastio.stream_mjpeg_avi, io_video.stream_video_chunks) == real
     out = capsys.readouterr().out
     for tag in ("native decoder: built with `g++ -O3 -shared -fPIC -std=c++17 -pthread",
@@ -822,7 +828,14 @@ def test_chip_smoke_native_decode_phase_rehearsal(monkeypatch, capsys):
                 f"sha256 {chip_smoke.DEMO_NATIVE_SHA256}", "7 frames through the native decoder, 0 through cv2",
                 "time decode 512x288 clip (7 frames 512x288), frames/s: native",
                 "time decode demo_out/601_3.avi (75 frames 220x232), frames/s: native",
-                "time stream 7x288x512 native decode", "time stream 7x288x512 cv2 decode"):
+                "time stream 7x288x512 native decode", "time stream 7x288x512 cv2 decode",
+                f"progressive = baseline bitwise at 1 and {os.cpu_count()} threads",
+                "native stream of the progressive clip 7x288x512 warp_mode=fast: launches "
+                "{'warp_m': 24, 'box_solve': 24} (design 24); 7 frames through the native decoder, 0 through cv2; "
+                "tables bitwise equal to the baseline clip's native stream",
+                "time decode re-encoded 512x288 clip (7 frames, quality 90 4:2:0), frames/s: progressive native",
+                "progressive cv2 ", "time stream 7x288x512 native decode of the baseline clip",
+                "time stream 7x288x512 native decode of the progressive clip"):
         assert tag in out, tag
 
 
