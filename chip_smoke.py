@@ -100,6 +100,12 @@ DEMO_NATIVE_SHA256 = "8211c98448d3e3118b9fe63779819b6f1e6e79aa5f1e188ae8c5d07e40
 # cv2's JPEG quality of the native phase's clip re-encoded baseline and
 # progressive (4:2:0 both).
 REENCODE_QUALITY = 90
+# The committed arithmetic-coded frames (made by make_fixtures.py there):
+# frames 29 and 30 of demo_out/601_3.avi tiled to 1280x720, each as cv2's
+# baseline JPEG at quality 90 4:2:0 (<tile>.jpg) and its coefficients
+# re-coded sequential (.sof9.jpg) and progressive (.sof10.jpg).
+ARITH_GOLDEN = os.path.join("tests", "golden", "torch_arith")
+ARITH_TILES = ("demo29_720p_q90", "demo30_720p_q90")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -577,12 +583,23 @@ def write_mjpeg_avi(path: str, jpegs: list[bytes], h: int, w: int, fps: int = 30
         f.write(b"RIFF" + struct.pack("<I", 4 + len(body)) + b"AVI " + body)
 
 
-def jpeg_sof(jpeg: bytes) -> int:
-    """The SOF marker of a JPEG (0xC0 baseline, 0xC2 progressive, ...)."""
+def sof_at(jpeg: bytes) -> int:
+    """The offset of a JPEG's SOF marker."""
     i = 2
     while not (0xC0 <= jpeg[i + 1] <= 0xCF and jpeg[i + 1] not in (0xC4, 0xC8, 0xCC)):
         i += 2 + int.from_bytes(jpeg[i + 2 : i + 4], "big")
-    return jpeg[i + 1]
+    return i
+
+
+def jpeg_sof(jpeg: bytes) -> int:
+    """The SOF marker of a JPEG (0xC0 baseline, 0xC2 progressive, ...)."""
+    return jpeg[sof_at(jpeg) + 1]
+
+
+def jpeg_size(jpeg: bytes) -> tuple[int, int]:
+    """(height, width) from a JPEG's SOF."""
+    i = sof_at(jpeg)
+    return int.from_bytes(jpeg[i + 5 : i + 7], "big"), int.from_bytes(jpeg[i + 7 : i + 9], "big")
 
 
 def native_progressive_checks(dev, stamp: str, frames: np.ndarray, cfg, tmp: str, host: str) -> dict:
@@ -685,6 +702,111 @@ def native_progressive_checks(dev, stamp: str, frames: np.ndarray, cfg, tmp: str
     return launches
 
 
+def native_arith_checks(dev, stamp: str, n: int, cfg, tmp: str, host: str) -> dict:
+    """Phase 5m, arithmetic-coded frames (SOF9, SOF10), which no encoder on
+    this machine writes: the committed re-codings of demo_out/601_3.avi
+    decode natively to its bytes (DEMO_NATIVE_SHA256); n-frame clips that
+    cycle the ARITH_TILES, muxed by write_mjpeg_avi from the baseline JPEGs
+    and from their SOF9 and SOF10 re-codings, decode natively to the
+    baseline clip's bytes, each at 1 thread and at every core; and
+    process_video_stream(native=True) on each arithmetic clip, with the
+    launches and the pairs through each decoder counted, gives the baseline
+    clip's native stream's tables bitwise. Then decode frames/s (native
+    SOF9, SOF10 and baseline at every core and at 1 thread) and the native
+    stream's pairs/s on the three clips, in turns. Returns the SOF9 and
+    SOF10 streams' launches."""
+    import hashlib
+
+    from opticalflowclustering_tpu_torch.io import fastio
+    from opticalflowclustering_tpu_torch.io import video as io_video
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.pipeline.bounce import process_video_stream
+
+    cores = os.cpu_count() or 1
+    kinds = {"sof9": (".sof9.jpg", 0xC9), "sof10": (".sof10.jpg", 0xCA), "baseline": (".jpg", 0xC0)}
+    demo = fastio.decode_mjpeg_avi("demo_out/601_3.avi", threads=cores)
+    for kind in ("sof9", "sof10"):
+        path = os.path.join(ARITH_GOLDEN, f"demo_{kind}.avi")
+        for threads in (1, cores):
+            got = fastio.decode_mjpeg_avi(path, threads=threads)
+            check(np.array_equal(got, demo), f"{path}: the native decode at {threads} threads is not the demo clip's")
+        check(hashlib.sha256(got.tobytes()).hexdigest() == DEMO_NATIVE_SHA256, f"{path}: not JAX's libjpeg decode")
+    print(f"native decode of demo_out/601_3.avi's {demo.shape[0]} frames re-coded SOF9 and SOF10 "
+          f"({ARITH_GOLDEN}/demo_sof9.avi, demo_sof10.avi): bitwise the demo clip's at 1 and {cores} threads "
+          f"(sha256 {DEMO_NATIVE_SHA256})")
+
+    paths, sizes = {}, {}
+    for kind, (suffix, sof) in kinds.items():
+        tiles = []
+        for tile in ARITH_TILES:
+            with open(os.path.join(ARITH_GOLDEN, tile + suffix), "rb") as f:
+                tiles.append(f.read())
+            check(jpeg_sof(tiles[-1]) == sof, f"{tile}{suffix}: SOF {jpeg_sof(tiles[-1]):#x}, expected {sof:#x}")
+        jpegs = [tiles[i % len(tiles)] for i in range(n)]
+        paths[kind] = os.path.join(tmp, f"arith_{kind}.avi")
+        write_mjpeg_avi(paths[kind], jpegs, *jpeg_size(tiles[0]))
+        sizes[kind] = sum(map(len, tiles))
+    decoded = {}
+    for kind, path in paths.items():
+        one = fastio.decode_mjpeg_avi(path, threads=1)
+        check(one.shape[0] == n, f"{kind} clip: native decode {one.shape}")
+        check(np.array_equal(one, fastio.decode_mjpeg_avi(path, threads=cores)),
+              f"{kind} clip: 1 thread and {cores} threads decode differently")
+        decoded[kind] = one
+    _, h, w, _ = decoded["baseline"].shape
+    for kind in ("sof9", "sof10"):
+        check(np.array_equal(decoded[kind], decoded["baseline"]),
+              f"the {kind} clip decodes natively to other bytes than the baseline clip")
+        check(np.array_equal(io_video.read_video_bgr(paths[kind], native=True), decoded[kind]),
+              f"{kind} clip: read_video_bgr(native=True)")
+    print(f"native decode of {n} {w}x{h} frames cycling {', '.join(ARITH_TILES)}: baseline "
+          f"({sizes['baseline']} bytes of JPEG per cycle), SOF9 ({sizes['sof9']}) and SOF10 ({sizes['sof10']}): "
+          f"SOF9 = SOF10 = baseline bitwise at 1 and {cores} threads")
+
+    want = process_video_stream(paths["baseline"], cfg, None, True, device=dev)
+    runs = kernel_runs(n - 1, cfg.chunk, h, w, cfg.flow)
+    launches = {}
+    for kind in ("sof9", "sof10"):
+        kw.reset_launches()
+        with counted_decoders({}) as pairs:
+            got = process_video_stream(paths[kind], cfg, None, True, device=dev)
+        sync(dev)
+        launches[kind] = dict(kw.LAUNCHES)
+        check(launches[kind] == {"warp_m": runs, "box_solve": runs},
+              f"{kind} native stream: expected {runs} launches of each kernel, got {launches[kind]}")
+        check(pairs == {"native": n - 1, "cv2": 0}, f"{kind} native stream: pairs by decoder {pairs}, "
+              f"expected {n - 1} native")
+        for k in ("hue_table", "rgb_hue_table", "centroids", "mean_magnitude"):
+            check(np.array_equal(np.asarray(got[k]), np.asarray(want[k])),
+                  f"{kind} native stream {k}: not bitwise the baseline clip's")
+        print(f"native stream of the {kind} clip {n}x{h}x{w} warp_mode={cfg.flow.warp_mode}: launches "
+              f"{launches[kind]} (design {runs}); {pairs['native'] + 1} frames through the native decoder, "
+              f"{pairs['cv2']} through cv2; tables bitwise equal to the baseline clip's native stream")
+
+    decoders = {f"{kind} native {t}": (lambda path=path, threads=threads:
+                                       fastio.decode_mjpeg_avi(path, threads=threads))
+                for kind, path in paths.items()
+                for t, threads in ((f"{cores} threads", cores), ("1 thread", 1))}
+    times = {k: [] for k in decoders}
+    for _ in range(REPEATS):
+        for k, fn in decoders.items():
+            times[k].append(timed_s(dev, fn))
+    rates = ", ".join(f"{k} {n / float(np.median(v)):.1f}" for k, v in times.items())
+    print(f"time decode arithmetic {w}x{h} clip ({n} frames), frames/s: {rates} (median of {REPEATS}, "
+          f"in turns; {host}) {stamp}")
+    streams = {kind: lambda path=path: process_video_stream(path, cfg, None, True, device=dev)
+               for kind, path in paths.items()}
+    times = {k: [] for k in streams}
+    for _ in range(REPEATS):
+        for k, fn in streams.items():
+            times[k].append(timed_s(dev, fn))
+    for k, ts in times.items():
+        print(f"time stream {n}x{h}x{w} native decode of the {k} clip (decode included): "
+              f"{(n - 1) / float(np.median(ts)):.2f} pairs/s (median of {REPEATS}, in turns, runs "
+              f"{', '.join(f'{t:.3f}' for t in ts)} s; {host}) {stamp}")
+    return {"native_stream_sof9": launches["sof9"], "native_stream_sof10": launches["sof10"]}
+
+
 def native_decode_phase(dev, stamp: str, frames: np.ndarray, cfg) -> dict:
     """Phase 5m: the native MJPEG decoder (io.fastio over the port's
     native/fastio.cpp, built from the checkout with g++ alone) and its
@@ -698,9 +820,10 @@ def native_decode_phase(dev, stamp: str, frames: np.ndarray, cfg) -> dict:
     process_frames' of the natively decoded frames on the card. Then decode
     frames/s (native at every core and at 1 thread, cv2) on both clips, and
     stream pairs/s native and cv2, in turns. Then the progressive frames'
-    checks and times (native_progressive_checks). Returns the launches of
-    the native stream and of the progressive clip's native stream, by
-    path."""
+    checks and times (native_progressive_checks), and the arithmetic-coded
+    ones' (native_arith_checks, on n-frame clips). Returns the launches of
+    the native stream and of the progressive, SOF9 and SOF10 clips' native
+    streams, by path."""
     import hashlib
     import tempfile
 
@@ -777,7 +900,8 @@ def native_decode_phase(dev, stamp: str, frames: np.ndarray, cfg) -> dict:
             print(f"time stream {n}x{h}x{w} {k} decode (decode included): {(n - 1) / float(np.median(ts)):.2f} pairs/s "
                   f"(median of {REPEATS}, in turns, runs {', '.join(f'{t:.3f}' for t in ts)} s; {host}) {stamp}")
         progressive = native_progressive_checks(dev, stamp, frames, cfg, tmp, host)
-    return {"native_stream": launches, "native_stream_progressive": progressive}
+        arith = native_arith_checks(dev, stamp, n, cfg, tmp, host)
+    return {"native_stream": launches, "native_stream_progressive": progressive, **arith}
 
 
 def epe_phase(dev, stamp: str, frames: np.ndarray) -> int:
@@ -2196,8 +2320,9 @@ def main() -> int:
     findcosine_phase(series.cpu().numpy(), 20, 5)
 
     # Phase 5m: the native MJPEG decoder and its stream at 1280x720, on
-    # baseline and on progressive frames, each stream run with the launch
-    # counts set to 0 just before and read just after.
+    # baseline, progressive and arithmetic-coded (SOF9, SOF10) frames, each
+    # stream run with the launch counts set to 0 just before and read just
+    # after.
     path_launches.update(native_decode_phase(dev, stamp, frames, fast))
 
     # Phases 5n-5q: EPE against cv2 and the grid CLIs at 1280x720, each run

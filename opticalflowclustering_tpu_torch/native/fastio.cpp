@@ -2,37 +2,46 @@
 // batch PNG decode, straight into one preallocated [N, H, W, 3] uint8 BGR
 // buffer, with every frame or file of a batch decoded on its own thread.
 //
-// It needs no codec library: the baseline JPEG decoder, the inflate and the
+// It needs no codec library: the JPEG decoder, the inflate and the
 // PNG decoder below use the C++ standard library and POSIX only, so the
 // file builds with a bare g++ (io/fastio.py compiles it at first use with
 // g++ -O3 -shared -fPIC -std=c++17 -pthread).
 //
-// The JPEG decoder reproduces, integer for integer, libjpeg-turbo with
+// The JPEG decoder reproduces, integer for integer, libjpeg-turbo 2.1.5 with
 // out_color_space = JCS_EXT_BGR, do_fancy_upsampling = FALSE and the
 // default ISLOW IDCT (the JAX package's native/fastio.cpp), damaged frames
 // included:
 //   * markers as jdmarker.c reads them from a memory source, which feeds
-//     fake EOI markers (FF D9 FF D9 ...) past the end of the data;
+//     fake EOI markers (FF D9 FF D9 ...) past the end of the data; a DQT
+//     table always takes 64 entries, and a DAC sets the arithmetic
+//     conditioning (L, U, K) of its tables;
 //   * Huffman decode as jdhuff.c, with the standard tables of ITU-T T.81
 //     Annex K.3 where a sequential frame carries no DHT (jstdhuff.c: MJPEG
 //     omits them; the progressive decoder fills none);
 //     a segment that runs out of data decodes as zero bits, and its later
 //     MCUs as zero blocks, until the next restart marker;
+//   * arithmetic decode as jdarith.c, with jaricom.c's probability table:
+//     past a marker the decoder reads zero bytes and goes on decoding, and
+//     after a bad code (a magnitude or a run past the band) it skips the
+//     MCUs left in the segment;
 //   * the ISLOW IDCT as the library runs it on x86 (idct_islow below);
 //   * chroma replicated to full size (int_upsample, and the merged
 //     upsampler, which gives the same values);
 //   * YCbCr -> BGR with jdcolor.c's fixed-point tables (SCALEBITS 16);
 //   * the colour space guessed as jdapimin.c does (JFIF, Adobe transform,
 //     component ids); greyscale replicated to BGR.
-//   * progressive frames (SOF2) as jdphuff.c decodes them into a whole
-//     frame of coefficients: the DC and AC first scans and their
-//     successive-approximation refinements, EOB runs, the scan header's
-//     checks; then, before the IDCT, jdcoefct.c's block smoothing (on by
-//     default in libjpeg), which predicts the low coefficients that the
-//     frame's scans have not yet given in full (a frame cut short).
-// It takes 8-bit Huffman frames (SOF0, SOF1, SOF2). Any other frame
-// returns kErrSof minus (precision << 8 | SOF marker), so that the caller
-// can name it.
+//   * progressive frames (SOF2, SOF10), and sequential ones of several
+//     scans, decoded into a whole frame of coefficients (jdcoefct.c's
+//     buffered mode): for progressive ones the DC and AC first scans and
+//     their successive-approximation refinements (jdphuff.c: EOB runs), the
+//     scan header's checks, then, before the IDCT, jdcoefct.c's block
+//     smoothing (on by default in libjpeg), which predicts the low
+//     coefficients that the frame's scans have not yet given in full (a
+//     frame cut short).
+// It takes 8-bit frames, Huffman (SOF0, SOF1, SOF2) and arithmetic (SOF9,
+// SOF10): those libjpeg-turbo 2.1.5 decodes. Any other frame returns
+// kErrSof minus (precision << 8 | SOF marker), so that the caller can name
+// it.
 //
 // The PNG decoder reproduces libpng with the transforms the JAX decoder
 // asks for: strip_16, palette_to_rgb, expand_gray_1_2_4_to_8,
@@ -221,9 +230,23 @@ inline int frame_byte(const uint8_t* data, size_t size, size_t pos) {
   return pos < size ? data[pos] : (pos - size) & 1 ? 0xD9 : 0xFF;
 }
 
+// The next byte of a scan's entropy-coded data, as both of libjpeg's
+// entropy decoders read it: 0xFF00 is a 0xFF byte, fill 0xFFs are skipped,
+// and a marker stops the data: it is kept in *marker (libjpeg's
+// unread_marker), and from there on every byte reads as 0.
+inline int scan_byte(const uint8_t* data, size_t size, size_t* pos, int* marker) {
+  if (*marker) return 0;
+  int c = frame_byte(data, size, (*pos)++);
+  if (c != 0xFF) return c;
+  do c = frame_byte(data, size, (*pos)++);
+  while (c == 0xFF);
+  if (c == 0) return 0xFF;
+  *marker = c;
+  return 0;
+}
+
 // The entropy-coded bits of one scan, MSB first, as jdhuff.c's bit buffer
-// sees them: 0xFF00 is a 0xFF byte, fill 0xFFs are skipped, and a marker
-// stops the data: from there on the reader gives zero bits.
+// sees them (scan_byte's bytes).
 struct Bits {
   const uint8_t* data;
   size_t size;
@@ -237,16 +260,9 @@ struct Bits {
   bool insufficient = false;
 
   int byte() {
-    if (!marker) {
-      int c = frame_byte(data, size, pos++);
-      if (c != 0xFF) return c;
-      do c = frame_byte(data, size, pos++);
-      while (c == 0xFF);
-      if (c == 0) return 0xFF;
-      marker = c;
-    }
-    pad += 8;
-    return 0;
+    const int c = scan_byte(data, size, &pos, &marker);
+    if (marker) pad += 8;
+    return c;
   }
 
   void fill() {
@@ -283,6 +299,11 @@ struct Bits {
     acc = 0;
     n = 0;
     pad = 0;
+  }
+
+  // Past a restart marker the data goes on, unless a marker still stands.
+  void restarted() {
+    if (marker == 0) insufficient = false;
   }
 };
 
@@ -331,6 +352,215 @@ void decode_block(Bits& b, const HuffTable& dc, const HuffTable& ac,
     }
   }
 }
+
+// jaricom.c's jpeg_aritab, ITU-T T.81 Table D.2: per state, Qe in bits
+// 16..31, the next state after an MPS in bits 8..15, the switch-MPS flag in
+// bit 7 and the next state after an LPS in bits 0..6. State 113 is a fixed
+// probability of one half (ITU-T T.851).
+#define OFC_QE(qe, lps, mps, swap) ((static_cast<int32_t>(qe) << 16) | ((mps) << 8) | ((swap) << 7) | (lps))
+constexpr int32_t kAritab[113 + 1] = {
+    OFC_QE(0x5a1d, 1, 1, 1),     OFC_QE(0x2586, 14, 2, 0),    OFC_QE(0x1114, 16, 3, 0),
+    OFC_QE(0x080b, 18, 4, 0),    OFC_QE(0x03d8, 20, 5, 0),    OFC_QE(0x01da, 23, 6, 0),
+    OFC_QE(0x00e5, 25, 7, 0),    OFC_QE(0x006f, 28, 8, 0),    OFC_QE(0x0036, 30, 9, 0),
+    OFC_QE(0x001a, 33, 10, 0),   OFC_QE(0x000d, 35, 11, 0),   OFC_QE(0x0006, 9, 12, 0),
+    OFC_QE(0x0003, 10, 13, 0),   OFC_QE(0x0001, 12, 13, 0),   OFC_QE(0x5a7f, 15, 15, 1),
+    OFC_QE(0x3f25, 36, 16, 0),   OFC_QE(0x2cf2, 38, 17, 0),   OFC_QE(0x207c, 39, 18, 0),
+    OFC_QE(0x17b9, 40, 19, 0),   OFC_QE(0x1182, 42, 20, 0),   OFC_QE(0x0cef, 43, 21, 0),
+    OFC_QE(0x09a1, 45, 22, 0),   OFC_QE(0x072f, 46, 23, 0),   OFC_QE(0x055c, 48, 24, 0),
+    OFC_QE(0x0406, 49, 25, 0),   OFC_QE(0x0303, 51, 26, 0),   OFC_QE(0x0240, 52, 27, 0),
+    OFC_QE(0x01b1, 54, 28, 0),   OFC_QE(0x0144, 56, 29, 0),   OFC_QE(0x00f5, 57, 30, 0),
+    OFC_QE(0x00b7, 59, 31, 0),   OFC_QE(0x008a, 60, 32, 0),   OFC_QE(0x0068, 62, 33, 0),
+    OFC_QE(0x004e, 63, 34, 0),   OFC_QE(0x003b, 32, 35, 0),   OFC_QE(0x002c, 33, 9, 0),
+    OFC_QE(0x5ae1, 37, 37, 1),   OFC_QE(0x484c, 64, 38, 0),   OFC_QE(0x3a0d, 65, 39, 0),
+    OFC_QE(0x2ef1, 67, 40, 0),   OFC_QE(0x261f, 68, 41, 0),   OFC_QE(0x1f33, 69, 42, 0),
+    OFC_QE(0x19a8, 70, 43, 0),   OFC_QE(0x1518, 72, 44, 0),   OFC_QE(0x1177, 73, 45, 0),
+    OFC_QE(0x0e74, 74, 46, 0),   OFC_QE(0x0bfb, 75, 47, 0),   OFC_QE(0x09f8, 77, 48, 0),
+    OFC_QE(0x0861, 78, 49, 0),   OFC_QE(0x0706, 79, 50, 0),   OFC_QE(0x05cd, 48, 51, 0),
+    OFC_QE(0x04de, 50, 52, 0),   OFC_QE(0x040f, 50, 53, 0),   OFC_QE(0x0363, 51, 54, 0),
+    OFC_QE(0x02d4, 52, 55, 0),   OFC_QE(0x025c, 53, 56, 0),   OFC_QE(0x01f8, 54, 57, 0),
+    OFC_QE(0x01a4, 55, 58, 0),   OFC_QE(0x0160, 56, 59, 0),   OFC_QE(0x0125, 57, 60, 0),
+    OFC_QE(0x00f6, 58, 61, 0),   OFC_QE(0x00cb, 59, 62, 0),   OFC_QE(0x00ab, 61, 63, 0),
+    OFC_QE(0x008f, 61, 32, 0),   OFC_QE(0x5b12, 65, 65, 1),   OFC_QE(0x4d04, 80, 66, 0),
+    OFC_QE(0x412c, 81, 67, 0),   OFC_QE(0x37d8, 82, 68, 0),   OFC_QE(0x2fe8, 83, 69, 0),
+    OFC_QE(0x293c, 84, 70, 0),   OFC_QE(0x2379, 86, 71, 0),   OFC_QE(0x1edf, 87, 72, 0),
+    OFC_QE(0x1aa9, 87, 73, 0),   OFC_QE(0x174e, 72, 74, 0),   OFC_QE(0x1424, 72, 75, 0),
+    OFC_QE(0x119c, 74, 76, 0),   OFC_QE(0x0f6b, 74, 77, 0),   OFC_QE(0x0d51, 75, 78, 0),
+    OFC_QE(0x0bb6, 77, 79, 0),   OFC_QE(0x0a40, 77, 48, 0),   OFC_QE(0x5832, 80, 81, 1),
+    OFC_QE(0x4d1c, 88, 82, 0),   OFC_QE(0x438e, 89, 83, 0),   OFC_QE(0x3bdd, 90, 84, 0),
+    OFC_QE(0x34ee, 91, 85, 0),   OFC_QE(0x2eae, 92, 86, 0),   OFC_QE(0x299a, 93, 87, 0),
+    OFC_QE(0x2516, 86, 71, 0),   OFC_QE(0x5570, 88, 89, 1),   OFC_QE(0x4ca9, 95, 90, 0),
+    OFC_QE(0x44d9, 96, 91, 0),   OFC_QE(0x3e22, 97, 92, 0),   OFC_QE(0x3824, 99, 93, 0),
+    OFC_QE(0x32b4, 99, 94, 0),   OFC_QE(0x2e17, 93, 86, 0),   OFC_QE(0x56a8, 95, 96, 1),
+    OFC_QE(0x4f46, 101, 97, 0),  OFC_QE(0x47e5, 102, 98, 0),  OFC_QE(0x41cf, 103, 99, 0),
+    OFC_QE(0x3c3d, 104, 100, 0), OFC_QE(0x375e, 99, 93, 0),   OFC_QE(0x5231, 105, 102, 0),
+    OFC_QE(0x4c0f, 106, 103, 0), OFC_QE(0x4639, 107, 104, 0), OFC_QE(0x415e, 103, 99, 0),
+    OFC_QE(0x5627, 105, 106, 1), OFC_QE(0x50e7, 108, 107, 0), OFC_QE(0x4b85, 109, 103, 0),
+    OFC_QE(0x5597, 110, 109, 0), OFC_QE(0x504f, 111, 107, 0), OFC_QE(0x5a10, 110, 111, 1),
+    OFC_QE(0x5522, 112, 109, 0), OFC_QE(0x59eb, 112, 111, 1), OFC_QE(0x5a1d, 113, 113, 0)};
+#undef OFC_QE
+
+// jdarith.c's QM decoder over one scan's bytes (scan_byte's, one at a
+// time: where it stops is where libjpeg's marker reader goes on). A bin is
+// a state index with the MPS in bit 7.
+struct Arith {
+  const uint8_t* data;
+  size_t size;
+  size_t pos;
+  int marker = 0;  // libjpeg's unread_marker
+  int64_t c = 0;   // the C register: the interval's base and the bit buffer
+  int64_t a = 0;   // the A register: the interval's size
+  int ct = -16;    // bits left in C's buffer; -16: two bytes to read; -1: a bad code
+  uint8_t fixed = 113;  // the bin of probability one half
+
+  // A restart or a new scan: read two bytes afresh.
+  void discard() {
+    c = 0;
+    a = 0;
+    ct = -16;
+  }
+
+  void restarted() {}
+
+  // One decision in bin *st (T.81 D.2.4 to D.2.6), and the bin's update.
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | scan_byte(data, size, &pos, &marker);
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // the first two bytes read
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int32_t qe = kAritab[sv & 0x7F];
+    const int nl = qe & 0xFF, nm = (qe >> 8) & 0xFF;
+    qe >>= 16;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // The search of a magnitude category (T.81 F.23) from bin *st on, with
+  // *m its first bound; *st is left at the bin that ended it. False where
+  // the category overflows (libjpeg's JWRN_ARITH_BAD_CODE): then ct = -1,
+  // and the rest of the segment is skipped.
+  bool category(uint8_t** st, int* m) {
+    while (decode(*st)) {
+      if ((*m <<= 1) == 0x8000) {
+        ct = -1;
+        return false;
+      }
+      ++*st;
+    }
+    return true;
+  }
+
+  // A value of category m from its bits (F.24), 14 bins past st, signed.
+  int value(uint8_t* st, int m, int sign) {
+    int x = m;
+    st += 14;
+    while (m >>= 1)
+      if (decode(st)) x |= m;
+    x += 1;
+    return sign ? -x : x;
+  }
+
+  // A DC difference (F.19) in the bins dc[64] of one conditioning table,
+  // with *context the component's conditioning from its last difference
+  // (F.1.4.4.1.2, bounds L and U).
+  bool dc_diff(uint8_t* dc, int* context, int L, int U, int* v) {
+    uint8_t* st = dc + *context;
+    if (!decode(st)) {
+      *context = 0;
+      *v = 0;
+      return true;
+    }
+    const int sign = decode(st + 1);
+    st += 2 + sign;
+    int m = decode(st);
+    if (m) {
+      st = dc + 20;  // X1
+      if (!category(&st, &m)) return false;
+    }
+    *context = m < (1 << L) >> 1 ? 0 : m > (1 << U) >> 1 ? 12 + sign * 4 : 4 + sign * 4;
+    *v = value(st, m, sign);
+    return true;
+  }
+
+  // The AC coefficients ss..se of one block (F.20) in the bins ac[256] of
+  // one conditioning table (split at K), shifted left by al, into blk.
+  bool ac_first(uint8_t* ac, int K, int ss, int se, int al, int16_t* blk) {
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = ac + 3 * (k - 1);
+      if (decode(st)) break;  // end of block
+      while (!decode(st + 1)) {
+        st += 3;
+        if (++k > se) {
+          ct = -1;  // past the band
+          return false;
+        }
+      }
+      const int sign = decode(&fixed);
+      st += 2;
+      int m = decode(st);
+      if (m && decode(st)) {
+        m = 2;
+        st = ac + (k <= K ? 189 : 217);  // X2 of the lower or the upper bins
+        if (!category(&st, &m)) return false;
+      }
+      blk[kNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(value(st, m, sign)) << al);
+    }
+    return true;
+  }
+
+  // A refinement of the AC coefficients ss..se (jdarith.c
+  // decode_mcu_AC_refine): a correction bit for each already nonzero one,
+  // and the newly nonzero ones, +-1 << al.
+  bool ac_refine(uint8_t* ac, int ss, int se, int al, int16_t* blk) {
+    const int p1 = 1 << al, m1 = -p1;
+    int kex = se;  // the band's last nonzero coefficient before this scan
+    while (kex > 0 && !blk[kNatural[kex]]) --kex;
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = ac + 3 * (k - 1);
+      if (k > kex && decode(st)) break;  // end of block
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {
+          if (decode(st + 2)) *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+          break;
+        }
+        if (decode(st + 1)) {
+          *coef = static_cast<int16_t>(decode(&fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) {
+          ct = -1;
+          return false;
+        }
+      }
+    }
+    return true;
+  }
+};
 
 // The ISLOW inverse DCT as libjpeg-turbo runs it on x86 (its SIMD
 // jsimd_idct_islow, which the JAX decoder's library takes): jidctint.c's
@@ -533,6 +763,9 @@ struct Jpeg {
   bool qt_defined[4] = {};
   HuffSpec dc[4], ac[4];
   int restart_interval = 0;
+  // The arithmetic conditioning of each of the 16 tables (DAC), as SOI
+  // sets them: DC bounds L and U, AC split K.
+  uint8_t dc_l[16] = {}, dc_u[16], ac_k[16];
   int sof = 0;        // the SOF marker, 0 before it
   int precision = 8;
   int width = 0, height = 0;
@@ -541,12 +774,17 @@ struct Jpeg {
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = 0;
   int scans = 0;
+  bool progressive = false;  // SOF2, SOF10
+  // The scans go into a whole frame of coefficients (coefs), output after
+  // the last one: a progressive frame, or a sequential one whose first
+  // scan does not hold every component (jdinput.c has_multiple_scans).
+  bool buffered = false;
   bool sequential_once = false;  // the first scan held every component
   int pending = 0;  // a marker the entropy decoder stopped at
   int scan_comps[4];
   int ns = 0;
   int ss = 0, se = 63, ah = 0, al = 0;  // the scan's band and approximation
-  // A progressive frame's coefficients: per component, blocks of 64 in
+  // A buffered frame's coefficients: per component, blocks of 64 in
   // natural order over its whole-MCU block grid (the stride of its plane
   // over 8). coef_bits is jdphuff.c's: per coefficient, the Al of the last
   // scan that gave it, -1 before any; prev_bits, its values when the
@@ -555,7 +793,10 @@ struct Jpeg {
   int coef_bits[10][64], prev_bits[10][64];  // a frame has at most 10 components
   int last_good_row = 0;  // jdcoefct.c's last_good_iMCU_row
 
-  Jpeg(const uint8_t* d, size_t n) : data(d), size(n) {}
+  Jpeg(const uint8_t* d, size_t n) : data(d), size(n) {
+    std::memset(dc_u, 1, sizeof dc_u);
+    std::memset(ac_k, 5, sizeof ac_k);
+  }
 
   int u8() { return frame_byte(data, size, pos++); }
   int u16() {
@@ -597,21 +838,16 @@ struct Jpeg {
     skip(n > 0 ? n : 0);
   }
 
+  // jdmarker.c get_dqt: every table takes its 64 entries, whatever the
+  // length says, so a length that is no whole number of tables fails.
   bool read_dqt() {
     int len = u16() - 2;
     while (len > 0) {
       const int t = u8();
-      --len;
       const int idx = t & 15, prec = t >> 4;
       if (idx >= 4) return false;
-      int count = 64;
-      if (len < (prec ? 128 : 64)) {
-        for (int i = 0; i < 64; ++i) qt[idx][i] = 1;
-        count = prec ? len >> 1 : len;
-      }
-      for (int i = 0; i < count; ++i)
-        qt[idx][kNatural[i]] = static_cast<uint16_t>(prec ? u16() : u8());
-      len -= count * (prec ? 2 : 1);
+      for (int i = 0; i < 64; ++i) qt[idx][kNatural[i]] = static_cast<uint16_t>(prec ? u16() : u8());
+      len -= prec ? 129 : 65;
       qt_defined[idx] = true;
     }
     return len == 0;
@@ -631,6 +867,25 @@ struct Jpeg {
       if ((index & ~0x10) >= 4) return false;
       set_spec(index & 0x10 ? &ac[slot] : &dc[slot], bits, vals);
       len -= count;
+    }
+    return len == 0;
+  }
+
+  // jdmarker.c get_dac. Any K is taken (K = 0 puts every coefficient in
+  // the upper bins, K > 63 every one in the lower).
+  bool read_dac() {
+    int len = u16() - 2;
+    while (len > 0) {
+      const int index = u8(), val = u8();
+      len -= 2;
+      if (index >= 32) return false;
+      if (index >= 16) {
+        ac_k[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        dc_l[index] = static_cast<uint8_t>(val & 15);
+        dc_u[index] = static_cast<uint8_t>(val >> 4);
+        if (dc_l[index] > dc_u[index]) return false;
+      }
     }
     return len == 0;
   }
@@ -716,7 +971,9 @@ struct Jpeg {
           if (u16() != 4) return kErrFormat;
           restart_interval = u16();
           break;
-        case 0xCC:  // DAC
+        case 0xCC:
+          if (!read_dac()) return kErrFormat;
+          break;
         case 0xDC:  // DNL
         case 0xFE: {  // COM
           const int n = u16() - 2;
@@ -736,8 +993,10 @@ struct Jpeg {
     }
   }
 
-  // jdmarker.c read_restart_marker and jpeg_resync_to_restart.
-  void restart(Bits& b, int* next_rst) {
+  // jdmarker.c read_restart_marker and jpeg_resync_to_restart, for the
+  // reader of either entropy decoder (Bits or Arith).
+  template <typename Reader>
+  void restart(Reader& b, int* next_rst) {
     b.discard();
     int m = b.marker ? b.marker : next_marker_from(b);
     const int want = 0xD0 + *next_rst;
@@ -772,10 +1031,11 @@ struct Jpeg {
       }
     }
     *next_rst = (*next_rst + 1) & 7;
-    if (b.marker == 0) b.insufficient = false;
+    b.restarted();
   }
 
-  int next_marker_from(Bits& b) {
+  template <typename Reader>
+  int next_marker_from(Reader& b) {
     pos = b.pos;
     int m = next_marker();
     b.pos = pos;
@@ -804,8 +1064,33 @@ struct Jpeg {
     return blocks <= 10;
   }
 
-  // Decode the entropy-coded data of the scan just read, block by block
-  // into the planes.
+  // A sequential scan's MCU (my, mx): fn(index in the scan, block) decodes
+  // each block, which then goes through the IDCT into its plane from blk
+  // (zeroed first, as jdcoefct.c decompress_onepass does), or, in a
+  // buffered frame, is decoded in place: there a block that a scan gives
+  // nothing keeps what it had (jdcoefct.c consume_data).
+  template <typename Fn>
+  void sequential_blocks(int my, int mx, int16_t* blk, Fn fn) {
+    for (int i = 0; i < ns; ++i) {
+      Component& c = comps[scan_comps[i]];
+      const int bh = ns == 1 ? 1 : c.v, bw = ns == 1 ? 1 : c.h;
+      for (int yy = 0; yy < bh; ++yy) {
+        for (int xx = 0; xx < bw; ++xx) {
+          const int by = my * bh + yy, bx = mx * bw + xx;
+          if (buffered) {
+            fn(i, block(scan_comps[i], by, bx));
+            continue;
+          }
+          std::memset(blk, 0, 64 * sizeof *blk);
+          fn(i, blk);
+          idct_islow(blk, c.qt, c.plane.data() + static_cast<size_t>(by) * 8 * c.stride + bx * 8, c.stride);
+        }
+      }
+    }
+  }
+
+  // Decode the entropy-coded data of a sequential scan just read, block by
+  // block (sequential_blocks).
   int decode_scan(const HuffTable* dct, const HuffTable* act) {
     int mcus_x, mcus_y;
     if (!scan_grid(&mcus_x, &mcus_y)) return kErrFormat;
@@ -824,22 +1109,10 @@ struct Jpeg {
           --restarts_to_go;
         }
         const bool zero = b.insufficient;
-        for (int i = 0; i < ns; ++i) {
-          Component& c = comps[scan_comps[i]];
-          const int bh = ns == 1 ? 1 : c.v, bw = ns == 1 ? 1 : c.h;
-          for (int yy = 0; yy < bh; ++yy) {
-            for (int xx = 0; xx < bw; ++xx) {
-              std::memset(blk, 0, sizeof blk);
-              if (!zero)
-                decode_block(b, dct[c.dc_tbl], act[c.ac_tbl], &preds[i], blk);
-              const int by = my * bh + yy, bx = mx * bw + xx;
-              idct_islow(blk, c.qt,
-                         c.plane.data() + static_cast<size_t>(by) * 8 *
-                                              c.stride + bx * 8,
-                         c.stride);
-            }
-          }
-        }
+        sequential_blocks(my, mx, blk, [&](int i, int16_t* dst) {
+          const Component& c = comps[scan_comps[i]];
+          if (!zero) decode_block(b, dct[c.dc_tbl], act[c.ac_tbl], &preds[i], dst);
+        });
       }
     }
     b.discard();
@@ -855,9 +1128,10 @@ struct Jpeg {
     return coefs[ci].data() + (static_cast<size_t>(by) * (c.stride / 8) + bx) * 64;
   }
 
-  // jdphuff.c start_pass_phuff_decoder: check the scan's band and
-  // approximation, record what it gives in coef_bits (a scan out of order
-  // is only a warning there), and build the one table kind it reads.
+  // jdphuff.c start_pass_phuff_decoder (and jdarith.c start_pass): check
+  // the scan's band and approximation, record what it gives in coef_bits
+  // (a scan out of order is only a warning there), and build the one table
+  // kind it reads, where it reads Huffman tables (tbls not null).
   bool start_progressive_scan(HuffTable* tbls) {
     const bool dc_band = ss == 0;
     bool bad = dc_band ? se != 0 : ss > se || se > 63 || ns != 1;
@@ -869,7 +1143,7 @@ struct Jpeg {
         prev_bits[ci][k] = scans > 0 ? coef_bits[ci][k] : 0;
       for (int k = ss; k <= se; ++k) coef_bits[ci][k] = al;
     }
-    if (dc_band && ah != 0) return true;  // a DC refinement reads no table
+    if (!tbls || (dc_band && ah != 0)) return true;  // a DC refinement reads no table
     for (int i = 0; i < ns; ++i) {
       const Component& c = comps[scan_comps[i]];
       const int t = dc_band ? c.dc_tbl : c.ac_tbl;
@@ -1023,12 +1297,106 @@ struct Jpeg {
     return kOk;
   }
 
+  // The scan just read of an arithmetic-coded frame, MCU by MCU as
+  // jdarith.c's decode_mcu (sequential: sequential_blocks, as decode_scan)
+  // or its decode_mcu_DC_first, _AC_first, _DC_refine and _AC_refine
+  // (progressive: into the coefficients). Past a marker it reads zero bytes
+  // and goes on decoding. After a bad code (Arith::ct = -1) it skips the
+  // MCUs left in the segment: their blocks keep what they had (zero in a
+  // sequential frame's one scan).
+  int decode_arith_scan() {
+    int mcus_x, mcus_y;
+    if (!scan_grid(&mcus_x, &mcus_y)) return kErrFormat;
+    Arith e{data, size, pos};
+    uint8_t dc_stats[16][64], ac_stats[16][256];  // per conditioning table
+    int last_dc[4], context[4];
+    const bool dc_first = !progressive || (ss == 0 && ah == 0), has_ac = !progressive || ss != 0;
+    // at the scan's start and at each restart: the statistics the scan
+    // reads, its DC predictions and the decoder's registers
+    auto reset = [&] {
+      for (int i = 0; i < ns; ++i) {
+        const Component& c = comps[scan_comps[i]];
+        if (dc_first) {
+          std::memset(dc_stats[c.dc_tbl], 0, sizeof dc_stats[0]);
+          last_dc[i] = context[i] = 0;
+        }
+        if (has_ac) std::memset(ac_stats[c.ac_tbl], 0, sizeof ac_stats[0]);
+      }
+      e.discard();
+    };
+    reset();
+    // the next DC of the scan's component i, false at a bad code
+    auto next_dc = [&](int i, int* dc) {
+      const int t = comps[scan_comps[i]].dc_tbl;
+      int v;
+      if (e.ct == -1 || !e.dc_diff(dc_stats[t], &context[i], dc_l[t], dc_u[t], &v)) return false;
+      last_dc[i] = (last_dc[i] + v) & 0xFFFF;
+      *dc = last_dc[i];
+      return true;
+    };
+    int restarts_to_go = restart_interval, next_rst = 0;
+    const int mcu_rows = ns == 1 ? comps[scan_comps[0]].v : 1;
+    const int p1 = 1 << al;
+    alignas(16) int16_t blk[64];
+    for (int my = 0; my < mcus_y; ++my) {
+      for (int mx = 0; mx < mcus_x; ++mx) {
+        // jdarith.c never sets insufficient_data: every row counts as good
+        last_good_row = my / mcu_rows;
+        if (restart_interval) {
+          if (restarts_to_go == 0) {
+            restart(e, &next_rst);
+            reset();
+            restarts_to_go = restart_interval;
+          }
+          --restarts_to_go;
+        }
+        if (progressive && ss == 0 && ah != 0) {
+          // the next bit of each DC, at probability one half; this decoder
+          // has no bad-code test
+          mcu_blocks(my, mx, [&](int, int16_t* dst) {
+            if (e.decode(&e.fixed)) dst[0] = static_cast<int16_t>(dst[0] | p1);
+          });
+          continue;
+        }
+        if (e.ct == -1) continue;
+        if (!progressive) {
+          sequential_blocks(my, mx, blk, [&](int i, int16_t* dst) {
+            const int t = comps[scan_comps[i]].ac_tbl;
+            int dc;
+            if (!next_dc(i, &dc)) return;
+            dst[0] = static_cast<int16_t>(dc);
+            e.ac_first(ac_stats[t], ac_k[t], 1, 63, 0, dst);
+          });
+          continue;
+        }
+        if (ss == 0) {
+          mcu_blocks(my, mx, [&](int i, int16_t* dst) {
+            int dc;
+            if (next_dc(i, &dc)) dst[0] = static_cast<int16_t>(static_cast<uint32_t>(dc) << al);
+          });
+          continue;
+        }
+        const int t = comps[scan_comps[0]].ac_tbl;
+        int16_t* dst = block(scan_comps[0], my, mx);
+        if (ah == 0) {
+          e.ac_first(ac_stats[t], ac_k[t], ss, se, al, dst);
+        } else {
+          e.ac_refine(ac_stats[t], ss, se, al, dst);
+        }
+      }
+    }
+    pos = e.pos;
+    pending = e.marker;
+    return kOk;
+  }
+
   // jdcoefct.c smoothing_ok, after the last scan: smoothing runs when every
   // component has its quantization table, nonzero at the DC and the nine
   // lowest AC coefficients, has had its DC, and some of those nine are not
   // yet known in full. It latches their coef_bits (now and at the start of
   // the component's last scan) into bits[ci] and prev[ci].
   bool smoothing_ok(int bits[][10], int prev[][10]) const {
+    if (!progressive) return false;
     bool useful = false;
     for (size_t ci = 0; ci < comps.size(); ++ci) {
       const Component& c = comps[ci];
@@ -1055,10 +1423,10 @@ struct Jpeg {
     return static_cast<int16_t>(neg ? -pred : pred);
   }
 
-  // The output pass of a progressive frame (jdcoefct.c decompress_data, or
+  // The output pass of a buffered frame (jdcoefct.c decompress_data, or
   // decompress_smooth_data when smoothing_ok): each component's own blocks
   // through the IDCT into its plane, the smoothed ones from a copy.
-  void output_progressive() {
+  void output_coefficients() {
     int latch[10][10], prev_latch[10][10];
     const bool smooth = smoothing_ok(latch, prev_latch);
     const int last_row = (height + 8 * vmax - 1) / (8 * vmax) - 1;  // iMCU rows
@@ -1157,13 +1525,18 @@ struct Jpeg {
   // Every scan, then the planes upsampled and colour-converted into out.
   int decode(uint8_t* out, int h, int w) {
     if (read_markers() != kOk) return kErrFormat;
-    if (sof != 0xC0 && sof != 0xC1 && sof != 0xC2) return kErrSof - (precision << 8 | sof);
+    if (sof != 0xC0 && sof != 0xC1 && sof != 0xC2 && sof != 0xC9 && sof != 0xCA)
+      return kErrSof - (precision << 8 | sof);
     if (precision != 8) return kErrSof - (precision << 8 | sof);
-    // libjpeg reads a progressive frame's every scan before it can tell
-    // the caller its size, so a fault in a scan comes first there
-    const bool progressive = sof == 0xC2;
-    if (!progressive && (width != w || height != h)) return kErrShape;
+    progressive = sof == 0xC2 || sof == 0xCA;
+    // an arithmetic-coded frame reads no Huffman table: a DHT in it is
+    // parsed and left unused
+    const bool arith = sof == 0xC9 || sof == 0xCA;
     const int nc = static_cast<int>(comps.size());
+    // libjpeg reads a buffered frame's every scan before it can tell the
+    // caller its size, so a fault in a scan comes first there
+    buffered = progressive || ns != nc;
+    if (!buffered && (width != w || height != h)) return kErrShape;
     if (nc != 1 && nc != 3) return kErrFormat;  // libjpeg has no conversion of these to BGR
     // jdapimin.c's guess: JFIF means YCbCr, else Adobe's transform 0 or
     // component ids 'R', 'G', 'B' mean RGB
@@ -1181,7 +1554,7 @@ struct Jpeg {
       // that no scan reached
       c.plane.assign(static_cast<size_t>(c.stride) * nmcu_y * c.v * 8, 128);
     }
-    if (progressive) {
+    if (buffered) {
       coefs.resize(nc);
       for (int ci = 0; ci < nc; ++ci)
         coefs[ci].assign(static_cast<size_t>(nmcu_x) * comps[ci].h * nmcu_y * comps[ci].v * 64, 0);
@@ -1190,7 +1563,8 @@ struct Jpeg {
           coef_bits[ci][k] = -1;
           prev_bits[ci][k] = 0;
         }
-    } else {
+    }
+    if (!progressive && !arith) {
       // libjpeg-turbo fills absent tables 0 and 1 with the standard ones
       // when its sequential Huffman decoder starts, after the first SOS
       // (MJPEG frames omit them).
@@ -1206,7 +1580,7 @@ struct Jpeg {
       if (!progressive && scans == 1 && sequential_once) return kErrFormat;
       for (int i = 0; i < ns; ++i) {
         Component& c = comps[scan_comps[i]];
-        if (!progressive) {
+        if (!progressive && !arith) {
           if (c.dc_tbl >= 4 || !dc[c.dc_tbl].defined ||
               !build_table(dc[c.dc_tbl], true, &dct[c.dc_tbl]))
             return kErrFormat;
@@ -1221,12 +1595,14 @@ struct Jpeg {
           c.latched = true;
         }
       }
+      if (progressive && !start_progressive_scan(arith ? nullptr : dct)) return kErrFormat;
+      if (!progressive && scans == 0) sequential_once = ns == nc;
       int rc;
-      if (progressive) {
-        if (!start_progressive_scan(dct)) return kErrFormat;
+      if (arith) {
+        rc = decode_arith_scan();
+      } else if (progressive) {
         rc = decode_progressive_scan(dct);
       } else {
-        if (scans == 0) sequential_once = ns == nc;
         rc = decode_scan(dct, act);
       }
       if (rc != kOk) return rc;
@@ -1235,9 +1611,9 @@ struct Jpeg {
       if (rc == 1) break;
       if (rc != kOk) return rc;
     }
-    if (progressive) {
+    if (buffered) {
       if (width != w || height != h) return kErrShape;
-      output_progressive();
+      output_coefficients();
     }
     convert(out, space);
     return kOk;

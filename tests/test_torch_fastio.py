@@ -464,28 +464,33 @@ def test_stream_stalls_at_a_corrupt_frame(tmp_path):
         fastio.decode_mjpeg_avi(path)
 
 
-@pytest.mark.parametrize("kind", ["SOF10", "SOF9", "SOF3", "12-bit"])
+@pytest.mark.parametrize("kind", ["SOF11", "SOF13", "SOF3", "12-bit"])
 def test_unsupported_frames_raise_naming_their_sof(kind, tmp_path):
-    """Arithmetic-coded (sequential and progressive), lossless and 12-bit
-    frames probe (so the native route takes their AVI) but do not decode:
-    ValueError naming the SOF and the frames the decoder takes, from the
-    batch and from the stream. (Progressive Huffman frames, SOF2, decode:
-    tests/test_torch_fastio_progressive.py.)"""
+    """Arithmetic lossless and differential, lossless and 12-bit frames
+    probe (so the native route takes their AVI) but do not decode, as
+    libjpeg-turbo 2.1.5 decodes none of them: ValueError naming the SOF and
+    the frames the decoder takes, from the batch and from the stream.
+    (Progressive Huffman frames, SOF2, decode:
+    tests/test_torch_fastio_progressive.py; arithmetic sequential and
+    progressive ones, SOF9 and SOF10: tests/test_torch_fastio_arith.py.)"""
     jpeg = bytearray(_encode(24, 32, 0))
     at = jpeg.index(b"\xff\xc0")
-    marker, precision, want = {"SOF10": (0xCA, 8, r"SOF10 \(arithmetic progressive, 8-bit\)"),
-                               "SOF9": (0xC9, 8, r"SOF9 \(arithmetic sequential, 8-bit\)"),
+    marker, precision, want = {"SOF11": (0xCB, 8, r"SOF11 \(arithmetic lossless, 8-bit\)"),
+                               "SOF13": (0xCD, 8, r"SOF13 \(arithmetic differential sequential, 8-bit\)"),
                                "SOF3": (0xC3, 8, r"SOF3 \(lossless, 8-bit\)"),
                                "12-bit": (0xC1, 12, r"SOF1 \(sequential Huffman, 12-bit\)")}[kind]
     jpeg[at + 1], jpeg[at + 4] = marker, precision
     jpeg = bytes(jpeg)
-    want += r" in .*; the decoder takes 8-bit Huffman frames \(SOF0, SOF1, SOF2\)"
+    want += r" in .*; the decoder takes 8-bit frames: Huffman \(SOF0, SOF1, SOF2\) and arithmetic \(SOF9, SOF10\)"
     path = _avi(tmp_path / "u.avi", [jpeg, jpeg])
     assert fastio.probe_mjpeg_avi(path) == (2, 24, 32)
     with pytest.raises(ValueError, match="unsupported JPEG frame " + want):
         fastio.decode_mjpeg_avi(path)
     with pytest.raises(ValueError, match="unsupported JPEG frame " + want):
         list(fastio.stream_mjpeg_avi(path, 1))
+    if jfastio.available():  # libjpeg refuses them at the header: the JAX probe fails
+        with pytest.raises(ValueError, match=r"not an MJPEG AVI \(rc=-2\)"):
+            jfastio.decode_mjpeg_avi(path)
 
 
 def test_probe_and_sniff(tmp_path):

@@ -809,18 +809,25 @@ def test_chip_smoke_native_decode_phase_rehearsal(monkeypatch, capsys):
     baseline and progressive: the progressive clip decodes to the baseline
     clip's bytes, within 5 codes of cv2, and its native stream makes the
     same launches through the native decoder alone, with the baseline
-    clip's tables; both decoders on both clips and both streams are timed.
-    The decoders are put back."""
+    clip's tables; both decoders on both clips and both streams are timed;
+    then the arithmetic-coded phase on 7-frame clips of two committed 48×64
+    tiles in place of the 720p ones: the SOF9 and SOF10 demo clips decode to
+    the demo clip's bytes, the SOF9 and SOF10 clips to the baseline clip's,
+    and their native streams make 2 chunks × 1 level × 3 iterations
+    launches through the native decoder alone, with the baseline clip's
+    tables; the three clips are timed. The decoders are put back."""
     from opticalflowclustering_tpu_torch.io import fastio
     from opticalflowclustering_tpu_torch.io import video as io_video
     from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
 
     chip_smoke, bounce, _ = _rehearse_on_cpu(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "ARITH_TILES", ("420_q75", "420_dac_l2_u5_k2"))
     real = (fastio.stream_mjpeg_avi, io_video.stream_video_chunks)
     cfg = bounce.PipelineConfig(chunk=4, flow=bounce.FarnebackParams(warp_mode="fast"))
     launches = chip_smoke.native_decode_phase(torch.device("cpu"), "[cpu rehearsal]", synth_frames(7, 288, 512), cfg)
-    runs = {"warp_m": 24, "box_solve": 24}
-    assert launches == {"native_stream": runs, "native_stream_progressive": runs}
+    runs, small = {"warp_m": 24, "box_solve": 24}, {"warp_m": 6, "box_solve": 6}
+    assert launches == {"native_stream": runs, "native_stream_progressive": runs, "native_stream_sof9": small,
+                        "native_stream_sof10": small}
     assert (fastio.stream_mjpeg_avi, io_video.stream_video_chunks) == real
     out = capsys.readouterr().out
     for tag in ("native decoder: built with `g++ -O3 -shared -fPIC -std=c++17 -pthread",
@@ -835,7 +842,16 @@ def test_chip_smoke_native_decode_phase_rehearsal(monkeypatch, capsys):
                 "tables bitwise equal to the baseline clip's native stream",
                 "time decode re-encoded 512x288 clip (7 frames, quality 90 4:2:0), frames/s: progressive native",
                 "progressive cv2 ", "time stream 7x288x512 native decode of the baseline clip",
-                "time stream 7x288x512 native decode of the progressive clip"):
+                "time stream 7x288x512 native decode of the progressive clip",
+                f"SOF9 and SOF10 ({chip_smoke.ARITH_GOLDEN}/demo_sof9.avi, demo_sof10.avi): bitwise the demo "
+                f"clip's at 1 and {os.cpu_count()} threads",
+                f"SOF9 = SOF10 = baseline bitwise at 1 and {os.cpu_count()} threads",
+                "native stream of the sof10 clip 7x48x64 warp_mode=fast: launches {'warp_m': 6, 'box_solve': 6} "
+                "(design 6); 7 frames through the native decoder, 0 through cv2; tables bitwise equal to the "
+                "baseline clip's native stream",
+                "time decode arithmetic 64x48 clip (7 frames), frames/s: sof9 native",
+                "baseline native 1 thread", "time stream 7x48x64 native decode of the sof9 clip",
+                "time stream 7x48x64 native decode of the baseline clip"):
         assert tag in out, tag
 
 
