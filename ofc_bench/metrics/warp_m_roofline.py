@@ -1,0 +1,9 @@
+"""warp_m_roofline: the warp_m kernel's share of its roofline over the
+traced launches, against the work the configuration asks of it
+(`yardstick.roofline_pct`). Layer: kernels."""
+
+from ofc_bench.yardstick import roofline_pct
+
+
+def read(view):
+    return roofline_pct(view, "warp_m")
