@@ -36,8 +36,9 @@ Layout (mirrors the JAX package):
               drawgrids, vectordistance
   scripts/    the probe scripts (gather_cost_probe, profile_r4) and the
               bench clips
-  utils/      timing and tracing (StageTimer, ThroughputMeter, trace_to,
-              CUDA-event timers) and logging
+  utils/      timing and tracing (StageTimer, ThroughputMeter, the
+              pipeline's `ofc.*` spans, trace_to, CUDA-event timers) and
+              logging
   convert.py  carries configs, constant tables and flax parameters across
               from the JAX side
 

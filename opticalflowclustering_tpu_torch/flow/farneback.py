@@ -36,6 +36,7 @@ from opticalflowclustering_tpu_torch.ops.filters import (
 )
 from opticalflowclustering_tpu_torch.ops.resize import resize_linear
 from opticalflowclustering_tpu_torch.runtime import f32
+from opticalflowclustering_tpu_torch.utils.profiling import span
 
 _MIN_SIZE = 32  # OpenCV: pyramid levels stop below 32 px on either side
 _BORDER = 5
@@ -458,51 +459,47 @@ def farneback_flow(
     if fused:
         from opticalflowclustering_tpu_torch.kernels import warp as kw
 
+    def level_poly(img, h_k, w_k, sigma):
+        smooth_sz = max(_cvround(sigma * 5) | 1, 3)
+        with span("ofc.flow.pyramid"):
+            level = resize_linear(gaussian_blur(img, smooth_sz, sigma, border="reflect101"), (h_k, w_k))
+        with span("ofc.flow.poly"):
+            return poly_expansion(level, params.poly_n, params.poly_sigma, channel_first=True)
+
     fx = fy = None
     for k, h_k, w_k, sigma in plan:
-        smooth_sz = max(_cvround(sigma * 5) | 1, 3)
-        r0, r1 = (
-            poly_expansion(
-                resize_linear(
-                    gaussian_blur(img, smooth_sz, sigma, border="reflect101"),
-                    (h_k, w_k),
-                ),
-                params.poly_n,
-                params.poly_sigma,
-                channel_first=True,
-            )
-            for img in (prev_f, next_f)
-        )
+        r0, r1 = (level_poly(img, h_k, w_k, sigma) for img in (prev_f, next_f))
 
-        if fx is None:
-            fx = torch.zeros(
-                (r0.shape[0], h_k, w_k), dtype=torch.float32, device=r0.device
-            )
-            fy = torch.zeros_like(fx)
-        else:
-            up = resize_linear(torch.stack([fx, fy], dim=1), (h_k, w_k))
-            up = up * f32(1.0 / params.pyr_scale)
-            fx, fy = up[:, 0].contiguous(), up[:, 1].contiguous()
+        with span("ofc.flow.solve"):
+            if fx is None:
+                fx = torch.zeros(
+                    (r0.shape[0], h_k, w_k), dtype=torch.float32, device=r0.device
+                )
+                fy = torch.zeros_like(fx)
+            else:
+                up = resize_linear(torch.stack([fx, fy], dim=1), (h_k, w_k))
+                up = up * f32(1.0 / params.pyr_scale)
+                fx, fy = up[:, 0].contiguous(), up[:, 1].contiguous()
 
-        if fused:
-            # R1's bf16 rounding is iteration-invariant: once per level.
-            if params.warp_mode == "fast16":
-                r1 = kw.quantize_r1_fast16(r1)
-            m = kw.warp_m(r0, r1, fx, fy)
-            for i in range(params.iterations):
-                fx, fy = kw.box_solve(m, params.winsize)
-                if i < params.iterations - 1:
-                    m = kw.warp_m(r0, r1, fx, fy)
-        else:
-            # Level-k flow is in level-k pixels (≈ motion / 2^k): the select
-            # warp's radius halves per level, floor 8 (the reference's
-            # `flow/farneback.py:536-548`).
-            radius_k = max(8, params.warp_radius >> k)
-            m = update_matrices(r0, r1, fx, fy, params.warp_mode, radius_k)
-            for i in range(params.iterations):
-                fx, fy = _update_flow(m, params.winsize, params.gaussian_win)
-                if i < params.iterations - 1:
-                    m = update_matrices(r0, r1, fx, fy, params.warp_mode, radius_k)
+            if fused:
+                # R1's bf16 rounding is iteration-invariant: once per level.
+                if params.warp_mode == "fast16":
+                    r1 = kw.quantize_r1_fast16(r1)
+                m = kw.warp_m(r0, r1, fx, fy)
+                for i in range(params.iterations):
+                    fx, fy = kw.box_solve(m, params.winsize)
+                    if i < params.iterations - 1:
+                        m = kw.warp_m(r0, r1, fx, fy)
+            else:
+                # Level-k flow is in level-k pixels (≈ motion / 2^k): the select
+                # warp's radius halves per level, floor 8 (the reference's
+                # `flow/farneback.py:536-548`).
+                radius_k = max(8, params.warp_radius >> k)
+                m = update_matrices(r0, r1, fx, fy, params.warp_mode, radius_k)
+                for i in range(params.iterations):
+                    fx, fy = _update_flow(m, params.winsize, params.gaussian_win)
+                    if i < params.iterations - 1:
+                        m = update_matrices(r0, r1, fx, fy, params.warp_mode, radius_k)
     return torch.stack([fx, fy], dim=-1).reshape(lead + (h, w, 2))
 
 

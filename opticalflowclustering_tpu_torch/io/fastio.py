@@ -37,6 +37,7 @@ import threading
 import numpy as np
 
 from opticalflowclustering_tpu_torch.io.video import assemble_chunks
+from opticalflowclustering_tpu_torch.utils.profiling import span
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "native" / "fastio.cpp"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".torch_ext_build" / "fastio"
@@ -320,7 +321,8 @@ def stream_mjpeg_avi(
                             raise ValueError(
                                 f"mjpeg stream decode ended with an incomplete prefix "
                                 f"({emitted}/{cur.count}): {path}")
-                        cur.thread.join(timeout=0.002)
+                        with span("ofc.decode.wait"):
+                            cur.thread.join(timeout=0.002)
                         continue
                 for i in range(emitted, avail):
                     yield cur.buf[i]

@@ -22,6 +22,8 @@ from collections.abc import Iterable, Iterator
 
 import numpy as np
 
+from opticalflowclustering_tpu_torch.utils.profiling import span
+
 _LFS_POINTER_MAGIC = b"version https://git-lfs.github.com/spec/v1"
 
 
@@ -107,8 +109,9 @@ def assemble_chunks(frames_iter: Iterator[np.ndarray], chunk: int, overlap: int)
         n_valid = max(0, len(frames) - overlap)
         if n_valid == 0:
             break
-        batch = np.zeros((chunk + overlap,) + frames[0].shape, np.uint8)
-        batch[: len(frames)] = np.stack(frames)
+        with span("ofc.stack"):
+            batch = np.zeros((chunk + overlap,) + frames[0].shape, np.uint8)
+            batch[: len(frames)] = np.stack(frames)
         yield batch, n_valid
         carry = frames[chunk:]
 
@@ -153,7 +156,12 @@ def prefetch_chunks(
 
     def worker():
         try:
-            for item in assemble_chunks(until_stopped(), chunk, overlap):
+            batches = assemble_chunks(until_stopped(), chunk, overlap)
+            while True:
+                with span("ofc.decode"):
+                    item = next(batches, _END)
+                if item is _END:
+                    break
                 if not put(item):
                     return
             put(_END)
@@ -168,7 +176,8 @@ def prefetch_chunks(
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("ofc.decode.wait"):
+                item = q.get()
             if item is _END:
                 return
             if isinstance(item, Exception):

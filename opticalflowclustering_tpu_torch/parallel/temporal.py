@@ -33,6 +33,7 @@ from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
 from opticalflowclustering_tpu_torch.ops.polar import magnitude
 from opticalflowclustering_tpu_torch.parallel.mesh import Mesh
 from opticalflowclustering_tpu_torch.runtime import resolve_device
+from opticalflowclustering_tpu_torch.utils.profiling import span
 
 
 def _hue_tables(gray_ext: torch.Tensor, grid: GridParams, params: FarnebackParams, rb_swap: bool):
@@ -40,10 +41,12 @@ def _hue_tables(gray_ext: torch.Tensor, grid: GridParams, params: FarnebackParam
     (hue [b, n, cells] uint8, rgb_hue [b, n, cells] float32,
     centroids [b, n, cells, 4] int32, mean_mag [b, n] float32)."""
     flow = farneback_flow(gray_ext[:, :-1], gray_ext[:, 1:], params)
-    mean_mag = magnitude(flow[..., 0], flow[..., 1]).mean(dim=(-2, -1))
-    flow_bgr = render_flow_hsv_bgr(flow)
-    centroids, hue = dominant_hue_k1_frames(flow_bgr, grid, rb_swap=rb_swap)
-    return hue, grid_mean_hue(flow_bgr, grid), centroids, mean_mag
+    with span("ofc.render"):
+        mean_mag = magnitude(flow[..., 0], flow[..., 1]).mean(dim=(-2, -1))
+        flow_bgr = render_flow_hsv_bgr(flow)
+    with span("ofc.grid"):
+        centroids, hue = dominant_hue_k1_frames(flow_bgr, grid, rb_swap=rb_swap)
+        return hue, grid_mean_hue(flow_bgr, grid), centroids, mean_mag
 
 
 def _split(size: int, parts: int, what: str) -> int:
@@ -63,16 +66,18 @@ def _block_grays(videos, devs: np.ndarray):
     dp, sp = devs.shape
     b_loc = _split(v.shape[0], dp, "a batch")
     n_loc = _split(v.shape[1], sp, "a frame axis")
-    gray = [
-        [
-            bgr2gray(v[i * b_loc : (i + 1) * b_loc, j * n_loc : (j + 1) * n_loc].to(devs[i, j]))
-            for j in range(sp)
-        ]
-        for i in range(dp)
-    ]
+    gray = [[None] * sp for _ in range(dp)]
     for i in range(dp):
         for j in range(sp):
-            yield i, j, torch.cat([gray[i][j], gray[i][(j + 1) % sp][:, :1].to(devs[i, j])], dim=1)
+            with span("ofc.upload"):
+                block = v[i * b_loc : (i + 1) * b_loc, j * n_loc : (j + 1) * n_loc].to(devs[i, j])
+            with span("ofc.render"):
+                gray[i][j] = bgr2gray(block)
+    for i in range(dp):
+        for j in range(sp):
+            with span("ofc.halo"):
+                gray_ext = torch.cat([gray[i][j], gray[i][(j + 1) % sp][:, :1].to(devs[i, j])], dim=1)
+            yield i, j, gray_ext
 
 
 def _sharded_blocks(videos, devs: np.ndarray, step):
@@ -84,10 +89,11 @@ def _sharded_blocks(videos, devs: np.ndarray, step):
     for i, j, gray_ext in _block_grays(videos, devs):
         outs[i][j] = step(gray_ext)
     n_out = len(outs[0][0])
-    return tuple(
-        torch.cat([torch.cat([outs[i][j][t].cpu() for j in range(sp)], dim=1) for i in range(dp)])
-        for t in range(n_out)
-    )
+    with span("ofc.readback"):
+        return tuple(
+            torch.cat([torch.cat([outs[i][j][t].cpu() for j in range(sp)], dim=1) for i in range(dp)])
+            for t in range(n_out)
+        )
 
 
 @torch.inference_mode()

@@ -47,6 +47,7 @@ from opticalflowclustering_tpu_torch.io.overlays import (
 from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
 from opticalflowclustering_tpu_torch.ops.polar import magnitude
 from opticalflowclustering_tpu_torch.runtime import resolve_device
+from opticalflowclustering_tpu_torch.utils.profiling import span, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,9 +79,11 @@ class OverlaySpec:
 def _render(frames: torch.Tensor, cfg: PipelineConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """[C+1, H, W, 3] uint8 BGR frames on the device → (mean |flow| [C],
     flow render [C, H, W, 3] uint8) of their C pairs."""
-    gray = bgr2gray(frames)
+    with span("ofc.render"):
+        gray = bgr2gray(frames)
     flow = farneback_flow(gray[:-1], gray[1:], cfg.flow)
-    return magnitude(flow[..., 0], flow[..., 1]).mean(dim=(-2, -1)), render_flow_hsv_bgr(flow)
+    with span("ofc.render"):
+        return magnitude(flow[..., 0], flow[..., 1]).mean(dim=(-2, -1)), render_flow_hsv_bgr(flow)
 
 
 @torch.inference_mode()
@@ -90,11 +93,15 @@ def chunk_step(
     """One chunk of C+1 BGR frames [C+1, H, W, 3] uint8 → features of its C
     pairs, computed on `device`; returns tensors on that device."""
     dev = resolve_device(device)
-    mean_mag, flow_bgr = _render(torch.as_tensor(frames_chunk).to(dev), cfg)
-    centroids, hue = dominant_hue_k1_frames(flow_bgr, cfg.grid, rb_swap=cfg.rb_swap)
+    with span("ofc.upload"):
+        frames = torch.as_tensor(frames_chunk).to(dev)
+    mean_mag, flow_bgr = _render(frames, cfg)
+    with span("ofc.grid"):
+        centroids, hue = dominant_hue_k1_frames(flow_bgr, cfg.grid, rb_swap=cfg.rb_swap)
+        rgb_hue = grid_mean_hue(flow_bgr, cfg.grid)
     out = {
         "hue_table": hue,
-        "rgb_hue_table": grid_mean_hue(flow_bgr, cfg.grid),
+        "rgb_hue_table": rgb_hue,
         # Per-cell RGBA centroids: the addnew.csv rows (`KmeanGrids.py:320-339`).
         "centroids": centroids,
         "mean_magnitude": mean_mag,
@@ -128,10 +135,12 @@ def grid_cluster_stage(
     [N, H, W, 3] uint8 BGR frames), on `device`: (centroids [N, cells, 4]
     int32, hue_table [N, cells] uint8, rgb_hue_table [N, cells] float32)."""
     frames = torch.as_tensor(flow_bgr).to(resolve_device(device))
-    centroids, hue = dominant_hue_k1_frames(frames, grid, rb_swap=rb_swap)
-    return centroids, hue, grid_mean_hue(frames, grid)
+    with span("ofc.grid"):
+        centroids, hue = dominant_hue_k1_frames(frames, grid, rb_swap=rb_swap)
+        return centroids, hue, grid_mean_hue(frames, grid)
 
 
+@spanned("ofc.process_frames")
 def process_frames(
     frames_bgr: np.ndarray,
     cfg: PipelineConfig = PipelineConfig(),
@@ -152,7 +161,8 @@ def process_frames(
     if frames_bgr.shape[0] < 2:
         raise ValueError("need at least 2 frames")
     dev = resolve_device(device)
-    chunks, n_pairs = _stack_chunks(frames_bgr, cfg.chunk)
+    with span("ofc.stack"):
+        chunks, n_pairs = _stack_chunks(frames_bgr, cfg.chunk)
     yolo = load_yolo_boxes(overlays.yolo_file) if overlays is not None and overlays.yolo_file else None
     outs = []
     for j, chunk in enumerate(chunks):
@@ -162,8 +172,10 @@ def process_frames(
             start = j * cfg.chunk
             out = _overlay_step(torch.from_numpy(chunk), cfg, dev, overlays, yolo, start,
                                 min(cfg.chunk, n_pairs - start))
-        outs.append({k: v.cpu().numpy() for k, v in out.items()})
-    return {k: np.concatenate([o[k] for o in outs])[:n_pairs] for k in outs[0]}
+        with span("ofc.readback"):
+            outs.append({k: v.cpu().numpy() for k, v in out.items()})
+    with span("ofc.readback"):
+        return {k: np.concatenate([o[k] for o in outs])[:n_pairs] for k in outs[0]}
 
 
 @torch.inference_mode()
@@ -173,15 +185,18 @@ def _overlay_step(
 ) -> dict[str, torch.Tensor]:
     """chunk_step with the overlays drawn onto the first `n_real` rendered
     frames in place on the device, then the grid stage over those frames."""
-    mean_mag, flow_bgr = _render(frames.to(dev), cfg)
+    with span("ofc.upload"):
+        frames = frames.to(dev)
+    mean_mag, flow_bgr = _render(frames, cfg)
     flow_bgr = flow_bgr[:n_real]
-    for i in range(n_real):
-        frame_num = start + 2 + i
-        if yolo is not None:
-            for x, y, w, h in yolo_rects_for_frame(yolo, frame_num):
-                draw_rect_outline(flow_bgr[i], x, y, w, h)
-        if spec.contour_dir:
-            apply_contour_mask(flow_bgr[i], load_contour_polys(spec.contour_dir, spec.video_name, frame_num))
+    with span("ofc.overlay"):
+        for i in range(n_real):
+            frame_num = start + 2 + i
+            if yolo is not None:
+                for x, y, w, h in yolo_rects_for_frame(yolo, frame_num):
+                    draw_rect_outline(flow_bgr[i], x, y, w, h)
+            if spec.contour_dir:
+                apply_contour_mask(flow_bgr[i], load_contour_polys(spec.contour_dir, spec.video_name, frame_num))
     centroids, hue, rgb_hue = grid_cluster_stage(flow_bgr, cfg.grid, cfg.rb_swap, dev)
     return {"hue_table": hue, "rgb_hue_table": rgb_hue, "centroids": centroids,
             "mean_magnitude": mean_mag[:n_real], "flow_bgr": flow_bgr}
@@ -198,6 +213,7 @@ def process_video_file(
     return process_frames(io_video.read_video_bgr(path, max_frames), cfg, device)
 
 
+@spanned("ofc.process_video_stream")
 def process_video_stream(
     path: str,
     cfg: PipelineConfig = PipelineConfig(),
@@ -265,35 +281,39 @@ def _stream_tables(
     pending = None  # (slot, tables, n_valid) of the chunk not yet read
 
     def read(slot, tables, n_valid):
-        if cuda:
-            fetched[slot][1].synchronize()
-        parts.append({k: v[:n_valid].numpy().copy() for k, v in tables.items()})
+        with span("ofc.readback"):
+            if cuda:
+                fetched[slot][1].synchronize()
+            parts.append({k: v[:n_valid].numpy().copy() for k, v in tables.items()})
 
     for k, (batch, n_valid) in enumerate(chunks):
         slot = k % 2
-        host = torch.from_numpy(batch)
-        if cuda:
-            if staged[slot] is None:
-                staged[slot] = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-            else:
-                uploaded[slot].synchronize()
-            staged[slot].copy_(host)
-            host = staged[slot]
-        frames = host.to(dev, non_blocking=True)
-        if cuda:
-            uploaded[slot] = torch.cuda.Event()
-            uploaded[slot].record(torch.cuda.current_stream(dev))
+        with span("ofc.stack"):
+            host = torch.from_numpy(batch)
+            if cuda:
+                if staged[slot] is None:
+                    staged[slot] = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+                else:
+                    uploaded[slot].synchronize()
+                staged[slot].copy_(host)
+                host = staged[slot]
+        with span("ofc.upload"):
+            frames = host.to(dev, non_blocking=True)
+            if cuda:
+                uploaded[slot] = torch.cuda.Event()
+                uploaded[slot].record(torch.cuda.current_stream(dev))
         out = chunk_step(frames, cfg, dev)
         if cuda:
-            if fetched[slot] is None:
-                fetched[slot] = (
-                    {n: torch.empty(v.shape, dtype=v.dtype, pin_memory=True) for n, v in out.items()},
-                    torch.cuda.Event(),
-                )
-            tables, done = fetched[slot]
-            for n, v in out.items():
-                tables[n].copy_(v, non_blocking=True)
-            done.record(torch.cuda.current_stream(dev))
+            with span("ofc.readback"):
+                if fetched[slot] is None:
+                    fetched[slot] = (
+                        {n: torch.empty(v.shape, dtype=v.dtype, pin_memory=True) for n, v in out.items()},
+                        torch.cuda.Event(),
+                    )
+                tables, done = fetched[slot]
+                for n, v in out.items():
+                    tables[n].copy_(v, non_blocking=True)
+                done.record(torch.cuda.current_stream(dev))
             out = tables
         if pending is not None:
             read(*pending)
@@ -301,7 +321,8 @@ def _stream_tables(
     if pending is None:
         return None
     read(*pending)
-    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    with span("ofc.readback"):
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
 @torch.inference_mode()

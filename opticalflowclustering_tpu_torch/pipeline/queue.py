@@ -27,6 +27,7 @@ import torch
 from opticalflowclustering_tpu_torch.io import video as io_video
 from opticalflowclustering_tpu_torch.pipeline.bounce import PipelineConfig, process_frames
 from opticalflowclustering_tpu_torch.utils.logging import get_logger
+from opticalflowclustering_tpu_torch.utils.profiling import span, spanned
 
 log = get_logger("ofc_torch.queue")
 
@@ -55,7 +56,8 @@ def _artifact_path(out_dir: str, video_path: str) -> str:
 
 
 def _save_tables(artifact: str, tables: dict[str, np.ndarray]) -> None:
-    np.savez_compressed(artifact, **{k: np.asarray(tables[k]) for k in _SAVED_KEYS})
+    with span("ofc.save"):
+        np.savez_compressed(artifact, **{k: np.asarray(tables[k]) for k in _SAVED_KEYS})
 
 
 def process_video_queue(
@@ -108,6 +110,7 @@ def load_features(artifact_path: str) -> dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
+@spanned("ofc.process_video_queue_dp")
 def process_video_queue_dp(
     video_paths: list[str],
     out_dir: str,
@@ -182,7 +185,8 @@ def process_video_queue_dp(
             if stop.is_set():
                 return
             try:
-                item = (p, io_video.read_video_bgr(p, max_frames))
+                with span("ofc.decode"):
+                    item = (p, io_video.read_video_bgr(p, max_frames))
             except Exception as e:  # noqa: BLE001 — reported as this video's result
                 item = (p, e)
             decoded.put(item)
@@ -202,15 +206,17 @@ def process_video_queue_dp(
 
     def run_batch(group) -> None:
         names = [p for p, _ in group]
-        vids = np.stack([f for _, f in group])  # [dp, N, H, W, 3]
-        n = vids.shape[1]
-        n_pad = (-n) % sp
-        if n_pad:  # repeat the last frame so sp divides N; the extra pairs are dropped
-            vids = np.concatenate([vids, np.repeat(vids[:, -1:], n_pad, axis=1)], axis=1)
+        with span("ofc.stack"):
+            vids = np.stack([f for _, f in group])  # [dp, N, H, W, 3]
+            n = vids.shape[1]
+            n_pad = (-n) % sp
+            if n_pad:  # repeat the last frame so sp divides N; the extra pairs are dropped
+                vids = np.concatenate([vids, np.repeat(vids[:, -1:], n_pad, axis=1)], axis=1)
         tables = sharded_hue_pipeline_videos(
             vids, mesh, dp_axis, sp_axis, grid=cfg.grid, params=cfg.flow, rb_swap=cfg.rb_swap
         )
-        hue, rgb_hue, cen, mag = (t[:, : n - 1].numpy() for t in tables)
+        with span("ofc.readback"):
+            hue, rgb_hue, cen, mag = (t[:, : n - 1].numpy() for t in tables)
         for i, p in enumerate(names):
             save(p, {"hue_table": hue[i], "rgb_hue_table": rgb_hue[i],
                      "centroids": cen[i], "mean_magnitude": mag[i]})
@@ -260,7 +266,8 @@ def process_video_queue_dp(
     decode_thread.start()
     try:
         while True:
-            item = decoded.get()
+            with span("ofc.decode.wait"):
+                item = decoded.get()
             if item is None:
                 break
             p, frames = item

@@ -1,15 +1,17 @@
 """Timing and tracing (port of `opticalflowclustering_tpu/utils/profiling.py`).
 
-Per-stage wall timers that wait for the card, a frames/sec/card meter, a
-`torch.profiler` trace context, and the card-side timers the probe scripts
-use: CUDA events around one call, the slope between two trip counts, which
-cancels the launch, and the replay of a CUDA graph of many launches, which
-leaves the host out of a small kernel's time.
+Per-stage wall timers that wait for the card, a frames/sec meter, the
+port's named spans (`span`, `spanned`), a `torch.profiler` trace context,
+and the card-side timers the probe scripts use: CUDA events around one call,
+the slope between two trip counts, which cancels the launch, and the replay
+of a CUDA graph of many launches, which leaves the host out of a small
+kernel's time.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import os
 import subprocess
@@ -18,6 +20,7 @@ from collections import defaultdict
 from collections.abc import Callable
 
 import torch
+import torch.autograd.profiler
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at its 700 W power
 # limit): HBM3 at 3.35 TB/s, and 67 TFLOP/s in float32 outside the tensor
@@ -64,7 +67,7 @@ class StageTimer:
 
 
 class ThroughputMeter:
-    """frames/sec/card meter — `imutils.FPS` equivalent
+    """frames/sec meter — `imutils.FPS` equivalent
     (`real_time_object_detection.py:31,67-71`) for batched pipelines."""
 
     def __init__(self):
@@ -86,9 +89,36 @@ class ThroughputMeter:
         e = self.elapsed()
         return self._frames / e if e > 0 else 0.0
 
-    def fps_per_chip(self) -> float:
-        cards = torch.cuda.device_count() if torch.cuda.is_available() else 1
-        return self.fps() / max(cards, 1)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named span of the port's pipeline (`ofc.<stage>`) on the profiler's
+    host clock: `with span("ofc.stack"): ...`. While a `torch.profiler`
+    profile is running, in any thread, it is a `record_function` span, so
+    the profiler's trace holds its name, start and end on the clock it maps
+    the card's kernels and copies onto; otherwise it is one shared
+    `nullcontext` and costs a flag read. It never waits for a device and is
+    never held open across a `yield`. A span opened on a thread the port
+    started reaches the trace only where the profile takes every thread
+    (`trace_to`)."""
+    return torch.profiler.record_function(name) if torch.autograd.profiler._is_profiler_enabled else _OFF
+
+
+def spanned(name: str):
+    """Decorator: each call of the function in one `span(name)`, the span
+    of an entry (`ofc.process_frames`) that its stages' spans nest in."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
 
 
 @contextlib.contextmanager
@@ -96,12 +126,16 @@ def trace_to(logdir: str):
     """torch.profiler trace context: `with trace_to('traces') as prof:
     run()` profiles the CPU and, where there is one, the card, and writes
     `<logdir>/trace.json` (Chrome trace format) on exit; `prof.key_averages()`
-    sums the time by operator."""
+    sums the time by operator. Every thread is profiled, so the trace also
+    holds the decode threads' `ofc.decode` spans."""
+    from torch._C._profiler import _ExperimentalConfig
+
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities,
+                                experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 

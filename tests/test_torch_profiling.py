@@ -79,26 +79,11 @@ def test_throughput_meter_fps_matches_jax(monkeypatch):
     assert got.fps() == want.fps() == pytest.approx(31 / 2.0)
 
 
-def test_fps_per_chip_divides_by_cards(monkeypatch):
-    """One device on the CPU (as JAX's one CPU device); the CUDA device count
-    where there is CUDA."""
-    now = {"t": 0.0}
-    monkeypatch.setattr(tprof.time, "perf_counter", lambda: now["t"])
-    m = tprof.ThroughputMeter().start()
-    m.update(40)
-    now["t"] = 1.0
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert m.fps_per_chip() == pytest.approx(40.0)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    assert m.fps_per_chip() == pytest.approx(10.0)
-
-
 def test_zero_elapsed_is_not_a_division_error(monkeypatch):
     monkeypatch.setattr(tprof.time, "perf_counter", lambda: 5.0)
     m = tprof.ThroughputMeter().start()
     m.update(3)
-    assert m.fps() == 0.0 and m.fps_per_chip() == 0.0
+    assert m.fps() == 0.0
 
 
 def test_trace_to_writes_a_chrome_trace(tmp_path):
