@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (opticalflowclustering_tpu_torch) on one
-CUDA card: builds the port's kernels (warp+M, box-solve and the gather-cost
-probes) from the sources in the checkout, holds each against its plain
-PyTorch version on the card (box-solve bit for bit at every odd winsize up to
-17, on the 720p pyramid's level shapes and on small frames), runs the probe
-scripts (gather_cost_probe, profile_r4) at their full sizes, drives the
-bounce-feature pipeline (process_frames) at 1280x720 with both kernel warp
-modes, checks it against the same pipeline on CPU tensors, matches a bounce
-signature, then drives the video-file paths at 1280x720 with their kernel
+CUDA card: builds the port's kernels (warp+M, box-solve, the polynomial
+expansion and the gather-cost probes) from the sources in the checkout,
+holds each against its plain PyTorch version on the card (box-solve bit for
+bit at every odd winsize up to 17, on the 720p pyramid's level shapes and on
+small frames), runs the probe scripts (gather_cost_probe, profile_r4) at
+their full sizes, holds the polynomial expansion bit for bit at every level
+shape of the 720p and the cropped clip's pyramids and times it beside its
+bound, drives the bounce-feature
+pipeline (process_frames) at 1280x720 with both kernel warp modes and every
+kernel's launches counted, checks it against the same pipeline on CPU
+tensors, matches a bounce signature, then drives the video-file paths at 1280x720 with their kernel
 launches counted: the stream's device loop through its prefetch thread
 (tables equal to process_frames'), the sequential and the dp×sp queue on a
 2×2 mesh of the card (artifacts equal), the temporal split (equal to the
@@ -32,7 +35,7 @@ unsharded pipeline's, its launches counted), the dryrun entry's six passes
 and its forward step, and the extras (scan and searchengine CLIs,
 color_transfer, skin_mask, locate_barcode, brightest_spot, find_screen with
 a Zernike descriptor) against the CPU; the legacy 'select' warp (plain
-PyTorch, no kernel launched) against the CPU on the 720p clip and on
+PyTorch, no warp_m or box_solve launched) against the CPU on the 720p clip and on
 demo_out/601_3.avi, its EPE against exact and cv2, and process_frames'
 pairs/s and peak memory in 'select' beside 'fast'; then the clustering and model
 paths at 1280x720, each against the same function on the CPU: kmeans_batched
@@ -73,6 +76,7 @@ from opticalflowclustering_tpu_torch.scripts.clips import noise_frames, synth_fr
 from opticalflowclustering_tpu_torch.utils.profiling import card_line
 
 H, W, N = 720, 1280, 49
+CROP_HW = (232, 220)  # demo_out/601_3.avi's frame: the cropped clip's pyramid levels
 REPEATS = 3
 # Trip counts of the probes' bitwise checks (the plain loops run in Python):
 # 0 to 2U + 1 for U = probes.UNROLL = 16, so every n mod U and a group more,
@@ -84,6 +88,7 @@ PLAIN_SLOPE_N = (64, 256)  # trip counts of the plain loops' per-iteration slope
 # frame or whose widths are no multiple of 4.
 BOX_WINSIZES = tuple(range(1, 18, 2))
 BOX_SHAPES = ((2, 72, 300), (3, 40, 100), (1, 5, 7), (1, 3, 40))
+POLY_CHECK = ((3, 0.9), (5, 1.2), (7, 1.5))  # (poly_n, poly_sigma) of the poly kernel's bitwise check
 QUEUE_CLIP = 17  # frames per queue clip: 16 pairs, one chunk each
 DEMO_FRAMES = None  # frames of demo_out/601_3.avi the cv2 stream check reads (None: all)
 # --max-frames of drawgrids' CPU run: 2 pairs of plain 720p flow on the host
@@ -287,6 +292,118 @@ def kernel_runs(n_pairs: int, chunk: int, h: int, w: int, params) -> int:
     return -(-n_pairs // chunk) * len(pyramid_plan(h, w, params)) * params.iterations
 
 
+def poly_runs(n_pairs: int, chunk: int, h: int, w: int, params) -> int:
+    """Launches of the poly-expansion kernel that `process_frames` makes for
+    n_pairs pairs of h×w: one per pyramid level and image of each chunk."""
+    from opticalflowclustering_tpu_torch.flow.farneback import pyramid_plan
+
+    return -(-n_pairs // chunk) * len(pyramid_plan(h, w, params)) * 2
+
+
+FLOW_KERNELS = ("warp_m", "box_solve", "poly_expansion")
+NO_LAUNCH = dict.fromkeys(FLOW_KERNELS, 0)
+
+
+def flow_runs(n_pairs: int, chunk: int, h: int, w: int, params, calls: int = 1) -> dict:
+    """Launches of each flow kernel that `calls` runs of `process_frames`
+    make over n_pairs pairs of h×w: warp_m and box_solve `kernel_runs` each
+    in the warp modes that take them ('fast', 'fast16'), none in the others;
+    the poly expansion `poly_runs` in every mode."""
+    warp = calls * kernel_runs(n_pairs, chunk, h, w, params) if params.warp_mode in ("fast", "fast16") else 0
+    return {"warp_m": warp, "box_solve": warp, "poly_expansion": calls * poly_runs(n_pairs, chunk, h, w, params)}
+
+
+def add_runs(*runs: dict) -> dict:
+    """The sum of launch counts by kernel."""
+    return {k: sum(r[k] for r in runs) for k in FLOW_KERNELS}
+
+
+def reset_launches() -> None:
+    """Set the launch counts of the three flow kernels to 0."""
+    from opticalflowclustering_tpu_torch.kernels import poly as kp
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+
+    kw.reset_launches()
+    kp.reset_launches()
+
+
+def launches_now() -> dict:
+    """The launch counts of the three flow kernels."""
+    from opticalflowclustering_tpu_torch.kernels import poly as kp
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+
+    return {**kw.LAUNCHES, **kp.LAUNCHES}
+
+
+def loop_ms(fn, iters: int) -> float:
+    """Mean ms of one of `iters` back-to-back calls of fn between two CUDA
+    events, after 3 calls of warm-up."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / iters
+
+
+def poly_phase(dev, stamp: str, levels, params, check_levels=()) -> dict:
+    """Phase 3c: the poly-expansion kernel bit for bit its plain version
+    (int32 views, so signed zeros count) at every shape of `levels` and
+    `check_levels`, for each (n, sigma) of POLY_CHECK, on integer frames
+    laced with -0.0 and subnormals; then its time at each of `levels`
+    (finest first) beside its bound (24 bytes a pixel over the HBM rate), at
+    the finest in turns with the plain version's (plain, kernel, kernel,
+    plain), and a chunk's 2 launches a level summed. Returns the finest
+    level's times and the largest |kernel - plain| measured."""
+    import torch
+
+    from opticalflowclustering_tpu_torch.kernels import poly as kp
+    from opticalflowclustering_tpu_torch.utils.profiling import bound_ms
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n, sigma = params.poly_n, params.poly_sigma
+    finest, chunk_ms, chunk_bound, err = None, 0.0, 0.0, 0.0
+    for i, (b, h, w) in enumerate(list(levels) + list(check_levels)):
+        x = torch.randint(0, 256, (b, h, w), generator=gen, device=dev).float()
+        x[..., ::7, ::5] = -0.0
+        x[..., 3::11, ::3] = 1e-40
+        for pn, ps in POLY_CHECK:
+            got = kp.poly_expansion(x, pn, ps)
+            want = kp.poly_expansion_reference(x, pn, ps)
+            sync(dev)
+            off = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            err = max(err, float((got - want).abs().max()))
+            check(off == 0, f"poly_expansion n={pn} [{b},{h},{w}]: {off} values differ in their bits")
+        del got, want
+        print(f"check poly_expansion n={', '.join(str(pn) for pn, _ in POLY_CHECK)} [{b},{h},{w}]: "
+              f"bitwise equal to the plain version")
+        if i >= len(levels):
+            continue
+        bound, by = bound_ms(kp.kernel_bytes(b, h, w), kp.kernel_ops(n, b, h, w))
+        kern = lambda: kp.poly_expansion(x, n, sigma)  # noqa: E731
+        order = ""
+        if finest is None:
+            plain = lambda: kp.poly_expansion_reference(x, n, sigma)  # noqa: E731
+            p1, k1, k2, p2 = loop_ms(plain, 10), loop_ms(kern, 50), loop_ms(kern, 50), loop_ms(plain, 10)
+            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            finest = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+            order = f", plain {plain_ms:.4f} ms (order plain, kernel, kernel, plain)"
+        else:
+            ms = loop_ms(kern, 50)
+        chunk_ms, chunk_bound = chunk_ms + 2 * ms, chunk_bound + 2 * bound
+        print(f"time poly_expansion [{b},{h},{w}] n={n}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"{bound / ms:.1%} of the bound{order} (CUDA events) {stamp}")
+    print(f"time poly_expansion per 16-pair chunk ({len(levels)} levels x 2 images = {2 * len(levels)} launches): "
+          f"{chunk_ms:.4f} ms, bound {chunk_bound:.4f} ms, {chunk_bound / chunk_ms:.1%} of the bound {stamp}")
+    return {**finest, "max_abs_err": err}
+
+
 def check_tables(got: dict, want: dict, tag: str) -> float:
     """The tables of two runs over the same pairs: the integer tables (hue,
     rgb_hue, centroids) bitwise equal and mean_magnitude within rtol 1e-6
@@ -318,7 +435,6 @@ def stream_phase(dev, stamp: str, frames: np.ndarray, want: dict, cfg) -> dict:
     stream (cv2 decode thread included) on demo_out/601_3.avi against
     process_frames of the same decoded frames. Returns the launches."""
     from opticalflowclustering_tpu_torch.io import video as io_video
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
     from opticalflowclustering_tpu_torch.pipeline.bounce import (
         _stream_tables,
         process_frames,
@@ -331,12 +447,12 @@ def stream_phase(dev, stamp: str, frames: np.ndarray, want: dict, cfg) -> dict:
         with contextlib.closing(io_video.prefetch_chunks(iter(frames), cfg.chunk)) as chunks:
             return _stream_tables(chunks, cfg, dev)
 
-    kw.reset_launches()
+    reset_launches()
     got = stream()
     sync(dev)
-    launches = dict(kw.LAUNCHES)
-    runs = kernel_runs(n - 1, cfg.chunk, h, w, cfg.flow)
-    check(launches == {"warp_m": runs, "box_solve": runs}, f"stream: expected {runs} launches of each kernel, got {launches}")
+    launches = launches_now()
+    runs = flow_runs(n - 1, cfg.chunk, h, w, cfg.flow)
+    check(launches == runs, f"stream: expected launches {runs}, got {launches}")
     check("flow_bgr" not in got and got["hue_table"].shape == (n - 1, cfg.grid.rows * cfg.grid.cols),
           f"stream tables {sorted(got)} {got['hue_table'].shape}")
     rel = check_tables(got, want, "stream vs process_frames")
@@ -346,9 +462,9 @@ def stream_phase(dev, stamp: str, frames: np.ndarray, want: dict, cfg) -> dict:
     if have_cv2():
         demo = "demo_out/601_3.avi"
         dec = io_video.read_video_bgr(demo, DEMO_FRAMES)
-        kw.reset_launches()
+        reset_launches()
         got_demo = process_video_stream(demo, cfg, DEMO_FRAMES, device=dev)
-        check(kw.LAUNCHES["warp_m"] > 0 and kw.LAUNCHES["box_solve"] > 0, "demo stream: kernels not launched")
+        check(all(launches_now().values()), f"demo stream: a kernel was not launched: {launches_now()}")
         check_tables(got_demo, process_frames(dec, cfg, dev), "demo stream (cv2) vs process_frames")
         print(f"stream {demo} ({dec.shape[0]} frames, cv2 decode thread): tables equal to process_frames'")
 
@@ -405,32 +521,31 @@ def queue_phase(dev, stamp: str, clips: list[np.ndarray], cfg) -> dict:
     import tempfile
 
     from opticalflowclustering_tpu_torch.io import video as io_video
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
     from opticalflowclustering_tpu_torch.parallel.mesh import make_mesh
     from opticalflowclustering_tpu_torch.pipeline import queue as vq
 
     mesh = make_mesh({"dp": 2, "sp": 2}, [dev] * 4)
     dp, sp = mesh.shape["dp"], mesh.shape["sp"]
     n, h, w = clips[0].shape[:3]
-    per_flow = kernel_runs(1, 1, h, w, cfg.flow)
     with tempfile.TemporaryDirectory(prefix="ofc-smoke-") as tmp, clip_files(tmp, clips) as paths:
-        kw.reset_launches()
+        reset_launches()
         seq = vq.process_video_queue(paths, os.path.join(tmp, "seq"), cfg, device=dev)
         sync(dev)
-        l_seq = dict(kw.LAUNCHES)
-        kw.reset_launches()
+        l_seq = launches_now()
+        reset_launches()
         dpr = vq.process_video_queue_dp(paths, os.path.join(tmp, "dp"), mesh, cfg)
         sync(dev)
-        l_dp = dict(kw.LAUNCHES)
+        l_dp = launches_now()
         stats = dict(vq.LAST_DP_STATS)
         check(all(r.ok and r.attempts == 1 for r in seq + dpr) and len(dpr) == len(paths),
               f"queue results: {[(r.video, r.ok, r.error) for r in seq + dpr]}")
         check(stats["batches"] >= 1 and stats["batch_failures"] == 0, f"LAST_DP_STATS {stats}")
-        runs = len(paths) * kernel_runs(n - 1, cfg.chunk, h, w, cfg.flow)
+        runs = flow_runs(n - 1, cfg.chunk, h, w, cfg.flow, len(paths))
         singles = len(paths) - dp * stats["batches"]
-        runs_dp = per_flow * (dp * sp * stats["batches"]) + singles * kernel_runs(n - 1, cfg.chunk, h, w, cfg.flow)
-        check(l_seq == {"warp_m": runs, "box_solve": runs}, f"queue: expected {runs} launches, got {l_seq}")
-        check(l_dp == {"warp_m": runs_dp, "box_solve": runs_dp}, f"dp queue: expected {runs_dp} launches, got {l_dp}")
+        runs_dp = add_runs(flow_runs(1, 1, h, w, cfg.flow, dp * sp * stats["batches"]),
+                           flow_runs(n - 1, cfg.chunk, h, w, cfg.flow, singles))
+        check(l_seq == runs, f"queue: expected launches {runs}, got {l_seq}")
+        check(l_dp == runs_dp, f"dp queue: expected launches {runs_dp}, got {l_dp}")
         worst = 0.0
         for r in seq:
             a = vq.load_features(r.path)
@@ -464,7 +579,6 @@ def temporal_phase(dev, videos: np.ndarray, cfg) -> dict:
     unsharded_hue_pipeline_videos on `dev`, with their launches."""
     import torch
 
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
     from opticalflowclustering_tpu_torch.parallel.mesh import make_mesh
     from opticalflowclustering_tpu_torch.parallel.temporal import (
         sharded_hue_pipeline_videos,
@@ -473,17 +587,16 @@ def temporal_phase(dev, videos: np.ndarray, cfg) -> dict:
 
     mesh = make_mesh({"dp": 2, "sp": 2}, [dev] * 4)
     b, n, h, w = videos.shape[:4]
-    per_flow = kernel_runs(1, 1, h, w, cfg.flow)
-    kw.reset_launches()
+    reset_launches()
     got = sharded_hue_pipeline_videos(videos, mesh, grid=cfg.grid, params=cfg.flow, rb_swap=cfg.rb_swap)
     sync(dev)
-    l_sh = dict(kw.LAUNCHES)
-    kw.reset_launches()
+    l_sh = launches_now()
+    reset_launches()
     want = unsharded_hue_pipeline_videos(videos, cfg.grid, cfg.flow, cfg.rb_swap, device=dev)
     sync(dev)
-    l_un = dict(kw.LAUNCHES)
-    check(l_sh == {"warp_m": 4 * per_flow, "box_solve": 4 * per_flow}, f"temporal sharded launches {l_sh}")
-    check(l_un == {"warp_m": per_flow, "box_solve": per_flow}, f"temporal unsharded launches {l_un}")
+    l_un = launches_now()
+    check(l_sh == flow_runs(1, 1, h, w, cfg.flow, 4), f"temporal sharded launches {l_sh}")
+    check(l_un == flow_runs(1, 1, h, w, cfg.flow), f"temporal unsharded launches {l_un}")
     keys = ("hue_table", "rgb_hue_table", "centroids", "mean_magnitude")
     cells = cfg.grid.rows * cfg.grid.cols
     check(tuple(got[0].shape) == (b, n, cells) and tuple(got[2].shape) == (b, n, cells, 4),
@@ -617,7 +730,6 @@ def native_progressive_checks(dev, stamp: str, frames: np.ndarray, cfg, tmp: str
 
     from opticalflowclustering_tpu_torch.io import fastio
     from opticalflowclustering_tpu_torch.io import video as io_video
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
     from opticalflowclustering_tpu_torch.pipeline.bounce import process_video_stream
 
     cores = os.cpu_count() or 1
@@ -658,14 +770,13 @@ def native_progressive_checks(dev, stamp: str, frames: np.ndarray, cfg, tmp: str
           f"vs cv2 largest gap {int(gap.max())} codes, mean {float(gap.mean()):.4f} (contract <= 5, < 1)")
 
     want = process_video_stream(paths["baseline"], cfg, None, True, device=dev)
-    kw.reset_launches()
+    reset_launches()
     with counted_decoders({}) as pairs:
         got = process_video_stream(paths["progressive"], cfg, None, True, device=dev)
     sync(dev)
-    launches = dict(kw.LAUNCHES)
-    runs = kernel_runs(n - 1, cfg.chunk, h, w, cfg.flow)
-    check(launches == {"warp_m": runs, "box_solve": runs},
-          f"progressive native stream: expected {runs} launches of each kernel, got {launches}")
+    launches = launches_now()
+    runs = flow_runs(n - 1, cfg.chunk, h, w, cfg.flow)
+    check(launches == runs, f"progressive native stream: expected launches {runs}, got {launches}")
     check(pairs == {"native": n - 1, "cv2": 0},
           f"progressive native stream: pairs by decoder {pairs}, expected {n - 1} native")
     for k in ("hue_table", "rgb_hue_table", "centroids", "mean_magnitude"):
@@ -719,7 +830,6 @@ def native_arith_checks(dev, stamp: str, n: int, cfg, tmp: str, host: str) -> di
 
     from opticalflowclustering_tpu_torch.io import fastio
     from opticalflowclustering_tpu_torch.io import video as io_video
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
     from opticalflowclustering_tpu_torch.pipeline.bounce import process_video_stream
 
     cores = os.cpu_count() or 1
@@ -764,16 +874,15 @@ def native_arith_checks(dev, stamp: str, n: int, cfg, tmp: str, host: str) -> di
           f"SOF9 = SOF10 = baseline bitwise at 1 and {cores} threads")
 
     want = process_video_stream(paths["baseline"], cfg, None, True, device=dev)
-    runs = kernel_runs(n - 1, cfg.chunk, h, w, cfg.flow)
+    runs = flow_runs(n - 1, cfg.chunk, h, w, cfg.flow)
     launches = {}
     for kind in ("sof9", "sof10"):
-        kw.reset_launches()
+        reset_launches()
         with counted_decoders({}) as pairs:
             got = process_video_stream(paths[kind], cfg, None, True, device=dev)
         sync(dev)
-        launches[kind] = dict(kw.LAUNCHES)
-        check(launches[kind] == {"warp_m": runs, "box_solve": runs},
-              f"{kind} native stream: expected {runs} launches of each kernel, got {launches[kind]}")
+        launches[kind] = launches_now()
+        check(launches[kind] == runs, f"{kind} native stream: expected launches {runs}, got {launches[kind]}")
         check(pairs == {"native": n - 1, "cv2": 0}, f"{kind} native stream: pairs by decoder {pairs}, "
               f"expected {n - 1} native")
         for k in ("hue_table", "rgb_hue_table", "centroids", "mean_magnitude"):
@@ -829,7 +938,6 @@ def native_decode_phase(dev, stamp: str, frames: np.ndarray, cfg) -> dict:
 
     from opticalflowclustering_tpu_torch.io import fastio
     from opticalflowclustering_tpu_torch.io import video as io_video
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
     from opticalflowclustering_tpu_torch.pipeline.bounce import process_frames, process_video_stream
 
     check(have_cv2(), "the native decoder's clip and its cv2 comparison need cv2, which is not importable")
@@ -863,14 +971,13 @@ def native_decode_phase(dev, stamp: str, frames: np.ndarray, cfg) -> dict:
         check(demo == DEMO_NATIVE_SHA256, f"demo clip decodes to {demo}, not JAX's libjpeg decode {DEMO_NATIVE_SHA256}")
         check(np.array_equal(decoded[f"{w}x{h} clip"], fastio.decode_mjpeg_avi(path)), "720p clip: default threads")
 
-        kw.reset_launches()
+        reset_launches()
         with counted_decoders({}) as pairs:
             got = process_video_stream(path, cfg, None, True, device=dev)
         sync(dev)
-        launches = dict(kw.LAUNCHES)
-        runs = kernel_runs(n - 1, cfg.chunk, h, w, cfg.flow)
-        check(launches == {"warp_m": runs, "box_solve": runs},
-              f"native stream: expected {runs} launches of each kernel, got {launches}")
+        launches = launches_now()
+        runs = flow_runs(n - 1, cfg.chunk, h, w, cfg.flow)
+        check(launches == runs, f"native stream: expected launches {runs}, got {launches}")
         check(pairs == {"native": n - 1, "cv2": 0}, f"native stream: pairs by decoder {pairs}, expected {n - 1} native")
         rel = check_tables(got, process_frames(decoded[f"{w}x{h} clip"], dataclasses.replace(cfg, emit_flow_bgr=False), dev),
                            "native stream vs process_frames of the native decode")
@@ -920,7 +1027,7 @@ def epe_phase(dev, stamp: str, frames: np.ndarray) -> int:
     from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
 
     gates = {"exact": 1e-3, "fast": 1e-3, "fast16": 1e-2}
-    design = 0
+    design = NO_LAUNCH
     clips = {f"synthetic {frames.shape[2]}x{frames.shape[1]}": frames[:5],
              "demo_out/601_3.avi 220x232": io_video.read_video_bgr("demo_out/601_3.avi", 35)[30:35]}
     for name, clip in clips.items():
@@ -937,16 +1044,17 @@ def epe_phase(dev, stamp: str, frames: np.ndarray) -> int:
             parts.append(f"{mode} {float(epe.mean()):.3g} (worst pair {float(epe.max()):.3g}, gate {gate:g})")
         print(f"EPE vs cv2 {cv2.__version__} calcOpticalFlowFarneback, 4 pairs of {name} (max |flow| "
               f"{float(np.abs(want).max()):.1f} px), mean px: {'; '.join(parts)} {stamp}")
-        design += 2 * kernel_runs(4, 4, clip.shape[1], clip.shape[2], FarnebackParams())
+        design = add_runs(design, *(flow_runs(4, 4, clip.shape[1], clip.shape[2], FarnebackParams(warp_mode=m))
+                                    for m in gates))
     return design
 
 
-def drawgrids_phase(dev, stamp: str, clip: str, tmp: str) -> str:
+def drawgrids_phase(dev, stamp: str, clip: str, tmp: str) -> tuple[str, dict]:
     """Phase 5o: the drawgrids CLI (--dump-cells, --device cuda) on the MJPG
     clip, timed, and the same CLI on the CPU at --max-frames
     DRAWGRIDS_CPU_FRAMES (a copy of the clip in a directory of its own): the
     CPU's `_rgb_values.csv` rows equal the card's first rows byte for byte.
-    Returns the card's OutImgs tree."""
+    Returns the card's OutImgs tree and the card run's launches."""
     import shutil
 
     from opticalflowclustering_tpu_torch.cli import drawgrids
@@ -957,11 +1065,14 @@ def drawgrids_phase(dev, stamp: str, clip: str, tmp: str) -> str:
         d = os.path.join(tmp, f"drawgrids_{where}")
         os.makedirs(d)
         path = shutil.copy(clip, d)
+        reset_launches()
         t0 = time.perf_counter()
         with contextlib.chdir(d):
             lines, _ = run_cli(drawgrids.main, ["--path", path, "--noyolo", "--nocontour", "--dump-cells",
                                                 "--device", where] + extra)
         sync(dev)
+        if where == "cuda":
+            launches = launches_now()
         with open(path + "_rgb_values.csv") as f:
             runs[where] = (time.perf_counter() - t0, f.read().splitlines(), lines)
     (t, card, lines), (_, cpu, _) = runs["cuda"], runs["cpu"]
@@ -973,15 +1084,15 @@ def drawgrids_phase(dev, stamp: str, clip: str, tmp: str) -> str:
           f"rgb_values rows equal to the CPU run's at --max-frames {DRAWGRIDS_CPU_FRAMES} ({len(cpu) - 1} rows); "
           f"{t:.2f} s with "
           f"decode, writes and the MJPG output {stamp}")
-    return tree
+    return tree, launches
 
 
-def celltree_phase(dev, stamp: str, clip: str, tree: str, tmp: str) -> None:
+def celltree_phase(dev, stamp: str, clip: str, tree: str, tmp: str) -> dict:
     """Phase 5p: the kmeangrids CLI with a Git-LFS pointer stub as --path
     over drawgrids' cell tree of `clip` (--device cuda), timed as cells/s:
     its hue table equals grid_cluster_stage's on the same rendered frames
     (the own-rectangle lines are in the PNGs) bitwise, and it writes one -f
-    row per cell."""
+    row per cell. Returns the CLI run's launches."""
     from opticalflowclustering_tpu_torch.cli import kmeangrids
     from opticalflowclustering_tpu_torch.features.grid import GridParams
     from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams
@@ -993,11 +1104,14 @@ def celltree_phase(dev, stamp: str, clip: str, tree: str, tmp: str) -> None:
     stub = os.path.join(d, "clip.mp4")
     with open(stub, "w") as f:
         f.write("version https://git-lfs.github.com/spec/v1\noid sha256:0\nsize 0\n")
+    reset_launches()
     t0 = time.perf_counter()
     with contextlib.chdir(d):
         lines, _ = run_cli(kmeangrids.main, ["-d", tree, "-c", "1", "-f", "addnew.csv", "--noyolo", "--nocontour",
                                              "--path", stub, "--device", "cuda"])
+    sync(dev)
     t = time.perf_counter() - t0
+    launches = launches_now()
     name = os.path.basename(tree)
     got = np.loadtxt(os.path.join(d, "OutCSV", f"{name}.csv"), delimiter=",", skiprows=1, dtype=np.int64, ndmin=2)
     flow_bgr = process_frames(io_video.read_video_bgr(clip), PipelineConfig(), dev)["flow_bgr"]
@@ -1010,6 +1124,7 @@ def celltree_phase(dev, stamp: str, clip: str, tree: str, tmp: str) -> None:
     print(f"kmeangrids cell-tree path (LFS stub --path) --device cuda: {lines[-1]}; hue table bitwise equal to "
           f"grid_cluster_stage's on the rendered frames; {want.size / t:.0f} cells/s ({t:.2f} s with PNG decode and "
           f"CSV writes) {stamp}")
+    return launches
 
 
 def vectordistance_phase(series: np.ndarray, rgb_series: np.ndarray, tmp: str) -> None:
@@ -1039,35 +1154,38 @@ def vectordistance_phase(series: np.ndarray, rgb_series: np.ndarray, tmp: str) -
 def surface_phases(dev, stamp: str, frames: np.ndarray, series: np.ndarray, rgb_series: np.ndarray) -> dict:
     """Phases 5n-5q at the clip's size, each run with the kernel launch
     counts set to 0 just before it and read just after and held against its
-    design: EPE against cv2 (both kernels in fast and fast16), drawgrids, the
-    kmeangrids cell-tree path and vectordistance (no kernel). Returns the
-    launches by path."""
+    design: EPE against cv2 (the poly kernel in every mode, warp_m and
+    box_solve in fast and fast16), drawgrids (its card run: the poly kernel
+    of the exact flow), the kmeangrids cell-tree path (its CLI run) and
+    vectordistance (no kernel). Returns the launches by path."""
     import tempfile
 
     from opticalflowclustering_tpu_torch.io import video as io_video
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.pipeline.bounce import PipelineConfig
 
     check(have_cv2(), "EPE against cv2 and the grid CLIs' MJPG clip need cv2, which is not importable")
     launches = {}
 
     def counted(name, fn):
-        kw.reset_launches()
+        reset_launches()
         result = fn()
         sync(dev)
-        launches[name] = dict(kw.LAUNCHES)
+        launches[name] = launches_now()
         return result
 
     with tempfile.TemporaryDirectory(prefix="ofc-smoke-") as tmp:
         clip = os.path.join(tmp, "clip.avi")
         io_video.write_video_mjpg(clip, frames, 30.0)
         epe = counted("epe", lambda: epe_phase(dev, stamp, frames))
-        check(launches["epe"] == {"warp_m": epe, "box_solve": epe},
-              f"epe: expected {epe} launches of each kernel, got {launches['epe']}")
-        tree = counted("drawgrids", lambda: drawgrids_phase(dev, stamp, clip, tmp))
-        counted("celltree", lambda: celltree_phase(dev, stamp, clip, tree, tmp))
+        check(launches["epe"] == epe, f"epe: expected launches {epe}, got {launches['epe']}")
+        tree, launches["drawgrids"] = drawgrids_phase(dev, stamp, clip, tmp)
+        cfg = PipelineConfig()  # the CLI's: the exact flow over the whole clip
+        runs = flow_runs(frames.shape[0] - 1, cfg.chunk, *frames.shape[1:3], cfg.flow)
+        check(launches["drawgrids"] == runs, f"drawgrids: expected launches {runs}, got {launches['drawgrids']}")
+        launches["celltree"] = celltree_phase(dev, stamp, clip, tree, tmp)
         counted("vectordistance", lambda: vectordistance_phase(series, rgb_series, tmp))
-    for name in ("drawgrids", "celltree", "vectordistance"):
-        check(launches[name] == {"warp_m": 0, "box_solve": 0}, f"{name} launched {launches[name]}")
+    for name in ("celltree", "vectordistance"):
+        check(launches[name] == NO_LAUNCH, f"{name} launched {launches[name]}")
     return launches
 
 
@@ -1147,7 +1265,6 @@ def overlay_phase(dev, stamp: str, frames: np.ndarray, tmp: str) -> dict:
     from opticalflowclustering_tpu_torch.features.grid import GridParams
     from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams
     from opticalflowclustering_tpu_torch.io import video as io_video
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
     from opticalflowclustering_tpu_torch.pipeline.bounce import (
         OverlaySpec,
         PipelineConfig,
@@ -1162,18 +1279,17 @@ def overlay_phase(dev, stamp: str, frames: np.ndarray, tmp: str) -> dict:
     decoded = io_video.read_video_bgr(clip)
     n, h, w = decoded.shape[:3]
     n_boxes, n_polys = overlay_inputs(d, "clip.avi", n, h, w)
-    kw.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     with contextlib.chdir(d):
         lines, _ = run_cli(kmeangrids.main, ["-d", "OutImgs/clip", "-c", "1", "-f", "addnew.csv", "--path", clip,
                                              "--device", "cuda"])
     sync(dev)
     t_cli = time.perf_counter() - t0
-    launches = dict(kw.LAUNCHES)
+    launches = launches_now()
     cfg = PipelineConfig(flow=FarnebackParams(warp_mode="fast"))  # the CLI's default mode
-    runs = kernel_runs(n - 1, cfg.chunk, h, w, cfg.flow)
-    check(launches == {"warp_m": runs, "box_solve": runs},
-          f"overlay: expected {runs} launches of each kernel, got {launches}")
+    runs = flow_runs(n - 1, cfg.chunk, h, w, cfg.flow)
+    check(launches == runs, f"overlay: expected launches {runs}, got {launches}")
     got = np.loadtxt(os.path.join(d, "OutCSV", "clip.csv"), delimiter=",", skiprows=1, dtype=np.int64, ndmin=2)
     plain = process_frames(decoded, cfg, dev)
     drawn = draw_overlays_on_host(plain["flow_bgr"], d, "clip.avi")
@@ -1330,26 +1446,27 @@ def overlay_ops_phases(dev, stamp: str, frames: np.ndarray) -> dict:
     with their CLIs (no hand-written kernel). Returns the launches by path."""
     import tempfile
 
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
 
     check(have_cv2(), "the overlay clip and the ops' CLIs need cv2, which is not importable")
     launches = {}
     with tempfile.TemporaryDirectory(prefix="ofc-smoke-") as tmp:
         launches["overlay"] = overlay_phase(dev, stamp, frames, tmp)
-        kw.reset_launches()
+        reset_launches()
         ops_phase(dev, stamp, frames, tmp)
         sync(dev)
-        launches["ops"] = dict(kw.LAUNCHES)
-    check(launches["ops"] == {"warp_m": 0, "box_solve": 0}, f"ops launched {launches['ops']}")
+        launches["ops"] = launches_now()
+    check(launches["ops"] == NO_LAUNCH, f"ops launched {launches['ops']}")
     return launches
 
 
-def spatial_runs(h: int, w: int, tp: int, params) -> int:
-    """box_solve launches of one row-sharded flow: one per block, pyramid
-    level and iteration (the batch goes in one launch)."""
+def spatial_runs(h: int, w: int, tp: int, params) -> dict:
+    """Launches of one row-sharded flow: box_solve one per block, pyramid
+    level and iteration, the poly expansion one per block, level and image
+    (the batch goes in one launch), warp_m none."""
     from opticalflowclustering_tpu_torch.flow.farneback import pyramid_plan
 
-    return tp * len(pyramid_plan(h, w, params)) * params.iterations
+    levels = len(pyramid_plan(h, w, params))
+    return {"warp_m": 0, "box_solve": tp * levels * params.iterations, "poly_expansion": tp * levels * 2}
 
 
 def spatial_phase(dev, stamp: str, frames: np.ndarray) -> dict:
@@ -1363,8 +1480,9 @@ def spatial_phase(dev, stamp: str, frames: np.ndarray) -> dict:
     spatial_farneback_flow on tp=2 within 5e-5 px of the unsharded flow
     (max |Δ| printed), and spatial_farneback_flow_padded on tp=4 (rows padded
     to the next multiple of 4·2^3) against the unsharded flow of the padded
-    frames, cropped; each run's launches the design's (box_solve: blocks ×
-    levels × iterations; warp_m none). Times ms per pair of each beside the
+    frames, cropped; each run's launches the design's (`spatial_runs`:
+    box_solve blocks × levels × iterations, poly_expansion blocks × levels ×
+    2, warp_m none). Times ms per pair of each beside the
     unsharded exact flow: on one card the blocks run in turn, so this is a
     check, not a speed-up. Returns the launches by path."""
     import torch
@@ -1404,10 +1522,10 @@ def spatial_phase(dev, stamp: str, frames: np.ndarray) -> dict:
     launches = {}
 
     def counted(name, fn):
-        kw.reset_launches()
+        reset_launches()
         out = fn()
         sync(dev)
-        launches[name] = dict(kw.LAUNCHES)
+        launches[name] = launches_now()
         return out
 
     got = counted("spatial_hue_tp2", lambda: spatial_hue_pipeline(prev, nxt, mesh2, "tp", grid, params))
@@ -1434,12 +1552,11 @@ def spatial_phase(dev, stamp: str, frames: np.ndarray) -> dict:
     design = {"spatial_hue_tp2": spatial_runs(h, w, 2, params), "spatial_flow_tp2": spatial_runs(h, w, 2, params),
               "spatial_padded_tp4": spatial_runs(h + pad, w, 4, params)}
     for name, runs in design.items():
-        check(launches[name] == {"warp_m": 0, "box_solve": runs},
-              f"{name}: expected {runs} box_solve launches and no warp_m, got {launches[name]}")
+        check(launches[name] == runs, f"{name}: expected launches {runs}, got {launches[name]}")
     print(f"spatial {n} pairs {w}x{h}, FarnebackParams() ({len(pyramid_plan(h, w, params))} levels): "
           f"spatial_hue_pipeline on a tp=2 mesh of {dev}: tables bitwise equal to the unsharded pipeline's "
           f"(mean_magnitude rel diff {rel:.3g}); spatial flow tp=2 max |Δ| {diff:.3g} px, padded tp=4 "
-          f"({h + pad} rows) max |Δ| {pad_diff:.3g} px; launches {launches} (design box_solve {design})")
+          f"({h + pad} rows) max |Δ| {pad_diff:.3g} px; launches {launches} (design {design})")
     ms = {"unsharded exact farneback_flow": profiling.event_ms(lambda: farneback_flow(prev, nxt, params), REPEATS),
           "spatial_farneback_flow tp=2": profiling.event_ms(
               lambda: spatial_farneback_flow(prev, nxt, mesh2, "tp", params), REPEATS),
@@ -1491,28 +1608,33 @@ def dryrun_phase(dev, stamp: str) -> dict:
     t0 = time.perf_counter()
     got = graft_entry.dryrun_multichip(4, devices=[dev] * 4)
     t = time.perf_counter() - t0
-    sp1 = FarnebackParams(levels=1, warp_radius=8)
-    fast_runs = (4 + 1) * kernel_runs(1, 1, 512, 128, fast)  # 4 blocks, then the unsharded flow
-    design = {"1": (0, 0), "1.5": (0, spatial_runs(192, 96, 4, sp1)), "1.6": (0, spatial_runs(720, 96, 4, sp1)),
-              "1.7": (0, spatial_runs(192, 96, 4, sp1)), "1.75": (fast_runs, fast_runs), "2": (0, 0)}
-    for name, (wm, bs) in design.items():
-        check(got[name] == {"warp_m": wm, "box_solve": bs},
-              f"dryrun pass {name}: expected warp_m {wm}, box_solve {bs}, got {got[name]}")
+    one, sp1 = FarnebackParams(levels=1), FarnebackParams(levels=1, warp_radius=8)
+
+    def tp4(h):  # the 4-block row-sharded flow of h×96 and the unsharded flow it is held to
+        return add_runs(spatial_runs(h, 96, 4, sp1), flow_runs(1, 1, h, 96, sp1))
+
+    # passes 1 and 1.75: 4 blocks, then the unsharded flow; pass 2: 4 blocks
+    design = {"1": flow_runs(1, 1, 64, 96, one, 5), "1.5": tp4(192), "1.6": tp4(720), "1.7": tp4(192),
+              "1.75": flow_runs(1, 1, 512, 128, fast, 5), "2": flow_runs(1, 1, 64, 96, one, 4)}
+    for name, runs in design.items():
+        check(got[name] == runs, f"dryrun pass {name}: expected launches {runs}, got {got[name]}")
     print(f"dryrun_multichip(4) on a mesh of {dev} x4: six passes ok, launches as designed; {t:.2f} s {stamp}")
 
     fn, (frames,) = graft_entry.entry(dev)
-    kw.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     out = fn(frames)
     sync(dev)
     t = time.perf_counter() - t0
-    launches = dict(kw.LAUNCHES)
-    want = process_frames(frames, PipelineConfig(chunk=4, emit_flow_bgr=False), dev)
+    launches = launches_now()
+    cfg = PipelineConfig(chunk=4, emit_flow_bgr=False)
+    want = process_frames(frames, cfg, dev)
     check([tuple(o.shape) for o in out] == [(4, 350), (4, 350), (4,)], f"entry shapes {[o.shape for o in out]}")
     check(all(bool(torch.isfinite(o.float()).all()) for o in out), "entry: non-finite output")
     for o, k in zip(out, ("hue_table", "rgb_hue_table", "mean_magnitude")):
         check(np.array_equal(o.cpu().numpy(), want[k]), f"entry {k} differs from process_frames'")
-    check(launches == {"warp_m": 0, "box_solve": 0}, f"entry (exact flow) launched {launches}")
+    runs = flow_runs(frames.shape[0] - 1, cfg.chunk, frames.shape[1], frames.shape[2], cfg.flow)
+    check(launches == runs, f"entry (exact flow): expected launches {runs}, got {launches}")
     print(f"entry() forward, {frames.shape[0]} frames {frames.shape[2]}x{frames.shape[1]}, exact flow: tables equal "
           f"to process_frames'; launches {launches}; {t * 1e3:.1f} ms {stamp}")
     return {f"dryrun_{k}": v for k, v in got.items()} | {"entry": launches}
@@ -1645,42 +1767,42 @@ def spatial_dryrun_extras_phases(dev, stamp: str, frames: np.ndarray) -> dict:
     no kernel). Returns the launches by path."""
     import tempfile
 
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
 
     check(have_cv2(), "the extras' CLIs and images need cv2, which is not importable")
     launches = spatial_phase(dev, stamp, frames)
     launches.update(dryrun_phase(dev, stamp))
     with tempfile.TemporaryDirectory(prefix="ofc-smoke-") as tmp:
-        kw.reset_launches()
+        reset_launches()
         extras_phase(dev, stamp, frames, tmp)
         sync(dev)
-        launches["extras"] = dict(kw.LAUNCHES)
-    check(launches["extras"] == {"warp_m": 0, "box_solve": 0}, f"extras launched {launches['extras']}")
+        launches["extras"] = launches_now()
+    check(launches["extras"] == NO_LAUNCH, f"extras launched {launches['extras']}")
     return launches
 
 
 def select_phase(dev, stamp: str, frames: np.ndarray) -> dict:
     """Phase 5w: the legacy 'select' warp (FarnebackParams(warp_mode=
-    'select'), warp_radius 32), which runs no kernel on any device. On 4
+    'select'), warp_radius 32), which runs warp_m and box_solve on no
+    device (its poly expansion is the kernel's, as in every mode). On 4
     pairs of `frames` and 4 pairs of real footage (demo_out/601_3.avi frames
     30-34): the card's flow within mean EPE SELECT_CARD_CPU_EPE of the
     port's CPU flow of the same pairs (the bound of the card-vs-CPU check of
-    phase 4), no launch of warp_m or box_solve, and the mean EPE against the
+    phase 4), the launches `flow_runs` gives 'select' (the poly kernel
+    alone), and the mean EPE against the
     exact flow and against cv2.calcOpticalFlowFarneback printed (not gated:
     'select' is inexact by contract). Then process_frames in 'select' and
     'fast' over `frames`, in turns, median of REPEATS: pairs/s of each and
     the peak allocated device memory of each, the 'select' runs launching
-    no kernel. Returns the launches by path."""
+    no warp_m or box_solve. Returns the launches by path."""
     import cv2
     import torch
 
     from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams, farneback_flow
     from opticalflowclustering_tpu_torch.io import video as io_video
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
     from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
     from opticalflowclustering_tpu_torch.pipeline.bounce import PipelineConfig, process_frames
 
-    select, zero = FarnebackParams(warp_mode="select"), {"warp_m": 0, "box_solve": 0}
+    select = FarnebackParams(warp_mode="select")
     clips = {"synthetic": (f"synthetic {frames.shape[2]}x{frames.shape[1]}", frames[:5]),
              "demo": ("demo_out/601_3.avi 220x232", io_video.read_video_bgr("demo_out/601_3.avi", 35)[30:35])}
     launches = {}
@@ -1691,12 +1813,13 @@ def select_phase(dev, stamp: str, frames: np.ndarray) -> dict:
     for key, (name, clip) in clips.items():
         gray = bgr2gray(torch.from_numpy(clip))
         g = gray.to(dev)
-        kw.reset_launches()
+        reset_launches()
         got = farneback_flow(g[:-1], g[1:], select)
         sync(dev)
         path = f"select_flow_{key}"
-        launches[path] = dict(kw.LAUNCHES)
-        check(launches[path] == zero, f"select flow {name} launched {launches[path]}")
+        launches[path] = launches_now()
+        runs = flow_runs(4, 4, *g.shape[1:], select)
+        check(launches[path] == runs, f"select flow {name} launched {launches[path]}, expected {runs}")
         got = got.cpu()
         cpu = farneback_flow(gray[:-1], gray[1:], select)
         e_cpu = epe(got, cpu)
@@ -1711,12 +1834,14 @@ def select_phase(dev, stamp: str, frames: np.ndarray) -> dict:
               f"{cv2.__version__} {epe(got, want):.3g} px {stamp}")
 
     cfgs = {m: PipelineConfig(emit_flow_bgr=False, flow=FarnebackParams(warp_mode=m)) for m in ("select", "fast")}
-    kw.reset_launches()
+    reset_launches()
     out = process_frames(frames, cfgs["select"], device=dev)  # also the warm-up
     sync(dev)
-    launches["select_process_frames"] = dict(kw.LAUNCHES)
-    check(launches["select_process_frames"] == zero, f"select process_frames launched {kw.LAUNCHES}")
+    launches["select_process_frames"] = launches_now()
     n_pairs = frames.shape[0] - 1
+    runs = flow_runs(n_pairs, cfgs["select"].chunk, *frames.shape[1:3], select)
+    check(launches["select_process_frames"] == runs,
+          f"select process_frames launched {launches['select_process_frames']}, expected {runs}")
     check(out["hue_table"].shape == (n_pairs, 350) and np.isfinite(out["mean_magnitude"]).all()
           and float(out["mean_magnitude"].max()) > 0.01, "select process_frames: tables wrong or no motion")
     process_frames(frames, cfgs["fast"], device=dev)
@@ -2032,14 +2157,13 @@ def fused_train_phase(dev, stamp: str, videos: np.ndarray) -> dict:
     """Phase 5l: make_fused_train_step with FarnebackParams(warp_mode='fast')
     and GridParams(4, 6) over videos [B, N, H, W, 3] u8, `steps` steps on a
     2×2 mesh of the card and on a 1×1 mesh, each from the same seeded
-    classifier: losses and parameters within rel 1e-5 of each other, the
-    warp_m / box_solve launches the design count (levels × iterations per
-    block flow × blocks × steps); each step timed. Returns the launches."""
+    classifier: losses and parameters within rel 1e-5 of each other, each
+    flow kernel's launches the design count (`flow_runs` of one flow a block
+    and step); each step timed. Returns the launches."""
     import torch
 
     from opticalflowclustering_tpu_torch.features.grid import GridParams
-    from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams, pyramid_plan
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams
     from opticalflowclustering_tpu_torch.models.bounce_classifier import adamw, init_classifier
     from opticalflowclustering_tpu_torch.parallel.mesh import make_mesh
     from opticalflowclustering_tpu_torch.parallel.train import make_fused_train_step
@@ -2048,7 +2172,6 @@ def fused_train_phase(dev, stamp: str, videos: np.ndarray) -> dict:
     steps = 3
     grid, flow = GridParams(4, 6), FarnebackParams(warp_mode="fast")
     labels = (np.arange(b * n).reshape(b, n) % 4 == 0).astype(np.float32)
-    per_flow = len(pyramid_plan(h, w, flow)) * flow.iterations
     runs = {}
     for name, shape in (("2x2", {"dp": 2, "sp": 2}), ("1x1", {"dp": 1, "sp": 1})):
         mesh = make_mesh(shape, [dev] * (shape["dp"] * shape["sp"]))
@@ -2056,7 +2179,7 @@ def fused_train_phase(dev, stamp: str, videos: np.ndarray) -> dict:
         make_fused_train_step(mesh, warm, adamw(warm.parameters(), 1e-3), grid, flow)(videos, labels)
         model = init_classifier(torch.Generator().manual_seed(0), grid.rows * grid.cols, device=dev)
         step = make_fused_train_step(mesh, model, adamw(model.parameters(), 1e-3), grid, flow)
-        kw.reset_launches()
+        reset_launches()
         losses, times = [], []
         for _ in range(steps):
             sync(dev)
@@ -2065,10 +2188,9 @@ def fused_train_phase(dev, stamp: str, videos: np.ndarray) -> dict:
             sync(dev)
             times.append(time.perf_counter() - t0)
         blocks = shape["dp"] * shape["sp"]
-        launches = dict(kw.LAUNCHES)
-        want = per_flow * blocks * steps
-        check(launches == {"warp_m": want, "box_solve": want},
-              f"fused train {name}: expected {want} launches of each kernel, got {launches}")
+        launches = launches_now()
+        want = flow_runs(1, 1, h, w, flow, blocks * steps)
+        check(launches == want, f"fused train {name}: expected launches {want}, got {launches}")
         runs[name] = (model, losses, times, launches, want)
     (m22, l22, t22, n22, w22), (m11, l11, t11, n11, w11) = runs["2x2"], runs["1x1"]
     check(all(np.isfinite(l22)), f"fused train losses {l22}")
@@ -2079,8 +2201,8 @@ def fused_train_phase(dev, stamp: str, videos: np.ndarray) -> dict:
           f"fused train 2x2 vs 1x1: loss rel {loss_rel}, params rel {param_rel}")
     print(f"fused train step {list(videos.shape)} grid 4x6 warp_mode=fast, {steps} steps: losses "
           f"{', '.join(f'{v:.6f}' for v in l22)}; 2x2 vs 1x1 loss rel diff {loss_rel:.3g}, params rel diff "
-          f"{param_rel:.3g} (tolerance 1e-5); launches 2x2 {n22} (design {per_flow} x 4 blocks x {steps} steps "
-          f"= {w22}), 1x1 {n11} (design {w11})")
+          f"{param_rel:.3g} (tolerance 1e-5); launches 2x2 {n22} (design: one flow a block and step, 4 blocks x "
+          f"{steps} steps = {w22}), 1x1 {n11} (design {w11})")
     for name, ts in (("2x2", t22), ("1x1", t11)):
         print(f"time fused train step {name} mesh of {dev}: {float(np.median(ts)) * 1e3:.1f} ms/step (median of "
               f"{steps}, runs {', '.join(f'{v * 1e3:.1f}' for v in ts)} ms) {stamp}")
@@ -2093,15 +2215,14 @@ def model_phases(dev, stamp: str, flow_bgr: np.ndarray, series: np.ndarray, vide
     the fused train step launches kernels). Returns the launches by path."""
     import tempfile
 
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
 
     launches = {}
 
     def counted(name, fn):
-        kw.reset_launches()
+        reset_launches()
         fn()
         sync(dev)
-        launches[name] = dict(kw.LAUNCHES)
+        launches[name] = launches_now()
 
     check(have_cv2(), "the model CLIs read and write images with cv2, which is not importable")
     with tempfile.TemporaryDirectory(prefix="ofc-smoke-") as tmp:
@@ -2227,19 +2348,24 @@ def main() -> int:
     # Phase 3b: the probe kernels and their scripts.
     probe_kernels = probe_phase(dev, stamp)
 
+    # Phase 3c: the poly-expansion kernel, bit for bit and timed.
+    crop = [(16, h_k, w_k) for _, h_k, w_k, _ in reversed(pyramid_plan(*CROP_HW, params))]
+    poly_times = poly_phase(dev, stamp, levels, params, crop)
+
     # Phase 4: the slice, at 1280x720, through process_frames.
     frames = synth_frames(N, H, W)
     launches = {}
     outs = {}
     for mode in ("fast", "fast16"):
         cfg = PipelineConfig(flow=FarnebackParams(warp_mode=mode))
-        kw.reset_launches()
+        reset_launches()
         out = process_frames(frames, cfg, device="cuda")
         torch.cuda.synchronize()
-        launches[mode] = dict(kw.LAUNCHES)
+        launches[mode] = launches_now()
         print(f"slice {mode}: launches {launches[mode]}")
-        check(launches[mode] == {"warp_m": 36, "box_solve": 36},
-              f"{mode}: expected 36 launches of each kernel, got {launches[mode]}")
+        runs = flow_runs(N - 1, cfg.chunk, H, W, cfg.flow)
+        check(launches[mode] == runs and runs["warp_m"] == 36,
+              f"{mode}: expected launches {runs} (36 of warp_m and box_solve each), got {launches[mode]}")
         n_pairs = N - 1
         check(out["hue_table"].shape == (n_pairs, 350), f"hue_table {out['hue_table'].shape}")
         check(out["rgb_hue_table"].shape == (n_pairs, 350), "rgb_hue_table shape")
@@ -2274,10 +2400,10 @@ def main() -> int:
     # Pure-noise 720p frames: finite, and each kernel within tolerance of its
     # plain version on the level-0 expansion and the flow the pipeline found.
     nz = noise_frames(9, H, W)
-    kw.reset_launches()
+    reset_launches()
     out_n = process_frames(nz, PipelineConfig(emit_flow_bgr=False, flow=FarnebackParams(warp_mode="fast")), "cuda")
     check(np.isfinite(out_n["mean_magnitude"]).all(), "noise: non-finite mean magnitude")
-    check(kw.LAUNCHES["warp_m"] > 0 and kw.LAUNCHES["box_solve"] > 0, "noise: kernels not launched")
+    check(all(launches_now().values()), f"noise: a kernel was not launched: {launches_now()}")
     gn = bgr2gray(torch.from_numpy(nz).to(dev)).float()
     flow_n = farneback_flow(gn[:-1], gn[1:], FarnebackParams(warp_mode="fast"))
     check(bool(torch.isfinite(flow_n).all()), "noise: non-finite flow")
@@ -2340,7 +2466,7 @@ def main() -> int:
     # read just after.
     path_launches.update(spatial_dryrun_extras_phases(dev, stamp, frames))
 
-    # Phase 5w: the 'select' warp (plain PyTorch, no kernel) at 1280x720
+    # Phase 5w: the 'select' warp (plain PyTorch, no warp_m or box_solve) at 1280x720
     # and on real footage, each run with the launch counts set to 0 just
     # before and read just after.
     path_launches.update(select_phase(dev, stamp, frames))
@@ -2365,21 +2491,9 @@ def main() -> int:
 
     for mode in ("fast", "fast16", "exact"):
         fps, times = pipeline_fps(mode)
-        label = "kernels" if mode != "exact" else "plain PyTorch warp, no kernels"
+        label = "kernels" if mode != "exact" else "plain PyTorch warp, the poly kernel alone"
         print(f"time process_frames {N}x{H}x{W} warp_mode={mode} ({label}): "
               f"{fps:.2f} pairs/s (median of {REPEATS}, runs {', '.join(f'{t:.3f}' for t in times)} s) {stamp}")
-
-    def event_ms(fn, iters):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(iters):
-            fn()
-        e.record()
-        torch.cuda.synchronize()
-        return s.elapsed_time(e) / iters
 
     # Each pipeline kernel at each pyramid level, beside its bound; at the
     # finest level also its plain version, in turns.
@@ -2394,18 +2508,18 @@ def main() -> int:
         for name, (kern, plain) in pairs.items():
             bound, by = bound_ms(kw.kernel_bytes(name, b, h, w), kw.kernel_ops(name, b, h, w, params.winsize))
             if (h, w) == (H, W):
-                p1, k1, k2, p2 = event_ms(plain, 10), event_ms(kern, 50), event_ms(kern, 50), event_ms(plain, 10)
+                p1, k1, k2, p2 = loop_ms(plain, 10), loop_ms(kern, 50), loop_ms(kern, 50), loop_ms(plain, 10)
                 ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
                 kernel_times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
                 order = f", plain {plain_ms:.4f} ms (order plain, kernel, kernel, plain)"
             else:
-                ms, order = event_ms(kern, 50), ""
+                ms, order = loop_ms(kern, 50), ""
             per_level[name].append((ms, bound))
             print(f"time {name} [{b},5,{h},{w}]: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
                   f"{bound / ms:.1%} of the bound{order} (CUDA events) {stamp}")
         if (h, w) == (H, W):
             for ws in BOX_WINSIZES:
-                ms = event_ms(lambda: kw.box_solve(m, ws), 20)
+                ms = loop_ms(lambda: kw.box_solve(m, ws), 20)
                 bound, by = bound_ms(kw.kernel_bytes("box_solve", b, h, w), kw.kernel_ops("box_solve", b, h, w, ws))
                 print(f"time box_solve [{b},5,{h},{w}] winsize {ws}: kernel {ms:.4f} ms, bound {bound:.4f} ms "
                       f"({by}), {bound / ms:.1%} of the bound (CUDA events) {stamp}")
@@ -2430,6 +2544,9 @@ def main() -> int:
          "launches": launches["fast"]["box_solve"], "max_abs_err": err["box_solve"],
          **kernel_times["box_solve"], "library_ms": None,
          "launches_by_path": {k: v["box_solve"] for k, v in path_launches.items()}},
+        {"name": "poly_expansion", "route": "cuda", "source": src + "poly_expansion.cu",
+         "replaces": None, "launches": launches["fast"]["poly_expansion"], **poly_times, "library_ms": None,
+         "launches_by_path": {k: v["poly_expansion"] for k, v in path_launches.items()}},
     ] + probe_kernels
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -14,10 +14,12 @@ float32 and the flow travels between steps as two planes fx, fy [B, H, W],
 the layout the CUDA kernels take. `farneback_flow` returns the reference's
 channel-last [..., H, W, 2].
 
-For warp modes 'fast' and 'fast16' with the box window (winsize ≤ 17), the
-warp+M and box-solve steps go through `kernels.warp.warp_m` / `box_solve`:
-the hand-written CUDA kernels for a CUDA tensor, their plain versions for a
-CPU tensor. Every other configuration ('exact', 'select', the Gaussian
+On a CUDA tensor the polynomial expansion is one launch of the
+`kernels.poly` kernel (n ≤ 8), in every warp mode; a CPU tensor runs its
+plain version. For warp modes 'fast' and 'fast16' with the box window
+(winsize ≤ 17), the warp+M and box-solve steps go through
+`kernels.warp.warp_m` / `box_solve`: the hand-written CUDA kernels for a
+CUDA tensor, their plain versions for a CPU tensor. Every other configuration ('exact', 'select', the Gaussian
 window, wider windows) runs the plain PyTorch steps on the caller's device.
 """
 
@@ -45,6 +47,8 @@ _BORDER_SCALE = np.array([0.14, 0.14, 0.4472, 0.4472, 0.4472], dtype=np.float32)
 _WARP_MODES = ("exact", "fast", "fast16", "select")
 # The box-solve kernel stages a halo of at most 8 rows/columns.
 MAX_KERNEL_WINSIZE = 17
+# The poly-expansion kernel unrolls n up to 8 (OpenCV's poly_n is 5 or 7).
+MAX_KERNEL_POLY_N = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +134,11 @@ def _poly_exp_consts(n: int, sigma: float):
     )
 
 
+def poly_kernel_takes(img: torch.Tensor, n: int) -> bool:
+    """Whether `poly_expansion` runs the CUDA kernel for this image and n."""
+    return img.device.type == "cuda" and n <= MAX_KERNEL_POLY_N
+
+
 def poly_expansion(
     img: torch.Tensor, n: int, sigma: float, channel_first: bool = False
 ) -> torch.Tensor:
@@ -139,7 +148,25 @@ def poly_expansion(
     Channels (OpenCV layout): 0: y-linear, 1: x-linear, 2: y², 3: x², 4: xy.
     A replicate-padded vertical pass (Σg·I, Σxg·I, Σxxg·I), then a
     horizontal pass combining them through the inverse Gram coefficients.
+    On the card (n ≤ `MAX_KERNEL_POLY_N`) one launch of the
+    `kernels.poly` kernel, bit for bit the plain version, which runs
+    everywhere else; channel-last output is then a view of the kernel's
+    channel-first planes.
     """
+    if poly_kernel_takes(img, n):
+        from opticalflowclustering_tpu_torch.kernels import poly as kp
+
+        h, w = img.shape[-2], img.shape[-1]
+        x = img.to(torch.float32).reshape(-1, h, w).contiguous()
+        out = kp.poly_expansion(x, n, sigma).reshape(img.shape[:-2] + (5, h, w))
+        return out if channel_first else out.movedim(-3, -1)
+    return _poly_expansion_plain(img, n, sigma, channel_first)
+
+
+def _poly_expansion_plain(
+    img: torch.Tensor, n: int, sigma: float, channel_first: bool = False
+) -> torch.Tensor:
+    """`poly_expansion` in plain PyTorch, on any device."""
     g, xg, xxg, ig11, ig03, ig33, ig55 = _poly_exp_consts(n, sigma)
     x = img.to(torch.float32)
     h, w = x.shape[-2], x.shape[-1]

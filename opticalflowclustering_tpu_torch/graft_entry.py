@@ -91,6 +91,7 @@ def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda", device
     from opticalflowclustering_tpu_torch.features.grid import GridParams, grid_mean_hue
     from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams, farneback_flow
     from opticalflowclustering_tpu_torch.flow.render import render_flow_hsv_bgr
+    from opticalflowclustering_tpu_torch.kernels import poly as kp
     from opticalflowclustering_tpu_torch.kernels import warp as kw
     from opticalflowclustering_tpu_torch.models.bounce_classifier import adamw, init_classifier
     from opticalflowclustering_tpu_torch.parallel.mesh import make_mesh
@@ -117,14 +118,16 @@ def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda", device
     def done(name: str, line: str) -> None:
         if home.type == "cuda":
             torch.cuda.synchronize(home)
-        launches[name] = dict(kw.LAUNCHES)
+        launches[name] = {**kw.LAUNCHES, **kp.LAUNCHES}
         print(f"{line}; launches {launches[name]}", flush=True)
         kw.reset_launches()
+        kp.reset_launches()
 
     def gray(a):
         return torch.from_numpy(a).to(home)
 
     kw.reset_launches()
+    kp.reset_launches()
 
     # --- pass 1: the pipeline, sharded vs unsharded, bitwise ---
     rng = np.random.default_rng(1)

@@ -1,10 +1,11 @@
-// PyTorch bindings of the warp_m, box_solve, loop_probe and dynslice kernels.
+// PyTorch bindings of the warp_m, box_solve, poly_expansion, loop_probe and
+// dynslice kernels.
 //
 // The kernels' sources include no PyTorch header; each exposes a plain C
 // launcher. This file takes tensors, checks them, launches on PyTorch's
 // current stream of the tensors' device and raises if the launch failed.
 // Outputs are allocated by the Python wrappers (kernels/warp.py,
-// kernels/probes.py).
+// kernels/poly.py, kernels/probes.py).
 
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
@@ -16,6 +17,8 @@ extern "C" int ofc_warp_m(const float* r0, const float* r1, const float* fx,
                           void* stream);
 extern "C" int ofc_box_solve(const float* m, float* fx, float* fy, int b, int h,
                              int w, int radius, float inv_area, void* stream);
+extern "C" int ofc_poly_expansion(const float* img, float* out, int b, int h,
+                                  int w, int n, const float* taps, void* stream);
 extern "C" int ofc_loop_probe(int body, const void* x, const int* idx,
                               float* out, int rows, int n, void* stream);
 extern "C" int ofc_dynslice(const void* x, const int* off, float* out,
@@ -80,6 +83,28 @@ void box_solve(const torch::Tensor& m, torch::Tensor fx, torch::Tensor fy,
            "box_solve");
 }
 
+// n, B, H and W are the C launcher's to refuse (cudaErrorInvalidValue);
+// kernels/poly.py checks n first, since the taps are made from it.
+void poly_expansion(const torch::Tensor& img, torch::Tensor out, int64_t n,
+                    const torch::Tensor& taps) {
+  check(img, "img", 3);
+  check(out, "out", 4);
+  TORCH_CHECK(taps.device().is_cpu() && taps.scalar_type() == torch::kFloat32 &&
+                  taps.is_contiguous() && taps.dim() == 1 && taps.size(0) == 3 * (n + 1) + 4,
+              "taps must be a CPU float32 vector of 3 (n + 1) + 4");
+  const int64_t b = img.size(0), h = img.size(1), w = img.size(2);
+  TORCH_CHECK(out.size(0) == b && out.size(1) == 5 && out.size(2) == h && out.size(3) == w,
+              "out must be [B, 5, H, W] of img's [B, H, W]");
+  TORCH_CHECK(out.device() == img.device(), "img and out must be on one device");
+  const c10::cuda::CUDAGuard guard(img.device());
+  void* stream = c10::cuda::getCurrentCUDAStream(img.get_device()).stream();
+  raise_on(ofc_poly_expansion(img.data_ptr<float>(), out.data_ptr<float>(),
+                              static_cast<int>(b), static_cast<int>(h),
+                              static_cast<int>(w), static_cast<int>(n),
+                              taps.data_ptr<float>(), stream),
+           "poly_expansion");
+}
+
 constexpr int64_t kLanes = 128;
 constexpr int64_t kTakeBf16 = 3;  // index of take_bf16 in probes.py BODIES
 
@@ -125,6 +150,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("warp_m", &warp_m, "warp_m kernel: (r0, r1, fx, fy, m_out)");
   mod.def("box_solve", &box_solve,
           "box_solve kernel: (m, fx_out, fy_out, radius, inv_area)");
+  mod.def("poly_expansion", &poly_expansion,
+          "poly_expansion kernel: (img, out, n, taps)");
   mod.def("loop_probe", &loop_probe, "loop_probe kernel: (body, x, idx, out, n)");
   mod.def("dynslice", &dynslice, "dynslice kernel: (x, off, out)");
 }
