@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (opticalflowclustering_tpu_torch) on one
-CUDA card: builds the port's kernels (warp+M, box-solve, the polynomial
-expansion and the gather-cost probes) from the sources in the checkout,
+CUDA card: builds the port's kernels (warp+M, box-solve, Gaussian-solve,
+the polynomial expansion and the gather-cost probes) from the sources in
+the checkout,
 holds each against its plain PyTorch version on the card (box-solve bit for
 bit at every odd winsize up to 17, on the 720p pyramid's level shapes and on
 small frames), runs the probe scripts (gather_cost_probe, profile_r4) at
 their full sizes, holds the polynomial expansion bit for bit at every level
 shape of the 720p and the cropped clip's pyramids and times it beside its
-bound, drives the bounce-feature
+bound, holds the Gaussian-window solve bit for bit at every radius 1-8 on
+the 5-level 720p pyramid's shapes and on small and odd-width frames, times
+it beside its bound and runs process_frames at OpenCV's accurate Farneback
+settings with its launches counted, drives the bounce-feature
 pipeline (process_frames) at 1280x720 with both kernel warp modes and every
 kernel's launches counted, checks it against the same pipeline on CPU
 tensors, matches a bounce signature, then drives the video-file paths at 1280x720 with their kernel
@@ -89,6 +93,12 @@ PLAIN_SLOPE_N = (64, 256)  # trip counts of the plain loops' per-iteration slope
 BOX_WINSIZES = tuple(range(1, 18, 2))
 BOX_SHAPES = ((2, 72, 300), (3, 40, 100), (1, 5, 7), (1, 3, 40))
 POLY_CHECK = ((3, 0.9), (5, 1.2), (7, 1.5))  # (poly_n, poly_sigma) of the poly kernel's bitwise check
+GAUSS_WINSIZES = tuple(range(3, 18, 2))  # the Gaussian solve's radius 1..8
+GAUSS_SHAPES = ((2, 37, 133), (3, 19, 130), (1, 5, 7), (1, 3, 40))  # odd widths, frames below the window
+# OpenCV's accurate settings: FarnebackOpticalFlow::create's 5 levels,
+# winsize 13 and 10 iterations, poly_n 7 / poly_sigma 1.5 and the Gaussian
+# window (the bounce720-gauss benchmark configuration).
+ACCURATE = dict(pyr_scale=0.5, levels=5, winsize=13, iterations=10, poly_n=7, poly_sigma=1.5, gaussian_win=True)
 QUEUE_CLIP = 17  # frames per queue clip: 16 pairs, one chunk each
 DEMO_FRAMES = None  # frames of demo_out/601_3.avi the cv2 stream check reads (None: all)
 # --max-frames of drawgrids' CPU run: 2 pairs of plain 720p flow on the host
@@ -209,7 +219,8 @@ def probe_phase(dev, stamp: str) -> list[dict]:
     launches, warp_launches = dict(probes.LAUNCHES), dict(kw.LAUNCHES)
     print(f"probe path: launches {launches}, {warp_launches} (a call captured into a CUDA graph counts once)")
     check(all(v > 0 for v in launches.values()), f"a probe kernel was not launched: {launches}")
-    check(all(v > 0 for v in warp_launches.values()), f"profile_r4 D launched no warp kernel: {warp_launches}")
+    check(warp_launches["warp_m"] > 0 and warp_launches["box_solve"] > 0,
+          f"profile_r4 D launched no warp kernel: {warp_launches}")
 
     kern_ns = dict(g["f32"], take_bf16=g["take_bf16"], two_takes=r["two_takes_ns"],
                    packed_take_unpack=r["packed_ns"])
@@ -300,17 +311,20 @@ def poly_runs(n_pairs: int, chunk: int, h: int, w: int, params) -> int:
     return -(-n_pairs // chunk) * len(pyramid_plan(h, w, params)) * 2
 
 
-FLOW_KERNELS = ("warp_m", "box_solve", "poly_expansion")
+FLOW_KERNELS = ("warp_m", "box_solve", "gauss_solve", "poly_expansion")
 NO_LAUNCH = dict.fromkeys(FLOW_KERNELS, 0)
 
 
 def flow_runs(n_pairs: int, chunk: int, h: int, w: int, params, calls: int = 1) -> dict:
     """Launches of each flow kernel that `calls` runs of `process_frames`
-    make over n_pairs pairs of h×w: warp_m and box_solve `kernel_runs` each
-    in the warp modes that take them ('fast', 'fast16'), none in the others;
-    the poly expansion `poly_runs` in every mode."""
+    make over n_pairs pairs of h×w: warp_m and the window's solve (box_solve,
+    or gauss_solve for the Gaussian window) `kernel_runs` each in the warp
+    modes that take them ('fast', 'fast16'), none in the others; the poly
+    expansion `poly_runs` in every mode."""
     warp = calls * kernel_runs(n_pairs, chunk, h, w, params) if params.warp_mode in ("fast", "fast16") else 0
-    return {"warp_m": warp, "box_solve": warp, "poly_expansion": calls * poly_runs(n_pairs, chunk, h, w, params)}
+    return {"warp_m": warp, "box_solve": 0 if params.gaussian_win else warp,
+            "gauss_solve": warp if params.gaussian_win else 0,
+            "poly_expansion": calls * poly_runs(n_pairs, chunk, h, w, params)}
 
 
 def add_runs(*runs: dict) -> dict:
@@ -319,7 +333,7 @@ def add_runs(*runs: dict) -> dict:
 
 
 def reset_launches() -> None:
-    """Set the launch counts of the three flow kernels to 0."""
+    """Set the launch counts of the four flow kernels to 0."""
     from opticalflowclustering_tpu_torch.kernels import poly as kp
     from opticalflowclustering_tpu_torch.kernels import warp as kw
 
@@ -328,7 +342,7 @@ def reset_launches() -> None:
 
 
 def launches_now() -> dict:
-    """The launch counts of the three flow kernels."""
+    """The launch counts of the four flow kernels."""
     from opticalflowclustering_tpu_torch.kernels import poly as kp
     from opticalflowclustering_tpu_torch.kernels import warp as kw
 
@@ -404,6 +418,81 @@ def poly_phase(dev, stamp: str, levels, params, check_levels=()) -> dict:
     return {**finest, "max_abs_err": err}
 
 
+def gauss_phase(dev, stamp: str, levels, params, frames, check_shapes=()) -> dict:
+    """Phase 3d: the Gaussian-solve kernel bit for bit its plain version
+    (int32 views, so signed zeros count) at every shape of `levels` and
+    `check_shapes`, for each winsize of GAUSS_WINSIZES, on a random M laced
+    with -0.0 and subnormals; then its time at each of `levels` (finest
+    first) at `params.winsize` beside its bound (28 bytes a pixel over the
+    HBM rate), at the finest in turns with the plain version's (plain,
+    kernel, kernel, plain), and a chunk's `iterations` launches a level
+    summed; then `process_frames` over `frames` at `params` with its
+    launches counted. Returns the finest level's times, the largest
+    |kernel - plain| measured and the pipeline's launches."""
+    import torch
+
+    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.pipeline.bounce import PipelineConfig, process_frames
+    from opticalflowclustering_tpu_torch.utils.profiling import bound_ms
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ws = params.winsize
+    finest, chunk_ms, chunk_bound, err = None, 0.0, 0.0, 0.0
+    for i, (b, h, w) in enumerate(list(levels) + list(check_shapes)):
+        m = torch.randn(b, 5, h, w, generator=gen, device=dev) * 10
+        m[:, 0].abs_()
+        m[:, 2].abs_()
+        m[..., ::7, ::5] = -0.0
+        m[:, 3, 3::11, ::3] = 1e-40
+        for k in GAUSS_WINSIZES:
+            got = kw.gauss_solve(m, k)
+            want = kw.gauss_solve_reference(m, k)
+            sync(dev)
+            off = sum(int((g.view(torch.int32) != v.view(torch.int32)).sum()) for g, v in zip(got, want))
+            err = max([err] + [float((g - v).abs().max()) for g, v in zip(got, want)])
+            check(off == 0, f"gauss_solve winsize {k} [{b},5,{h},{w}]: {off} values differ in their bits")
+        del got, want
+        print(f"check gauss_solve winsize {GAUSS_WINSIZES[0]}..{GAUSS_WINSIZES[-1]} (odd) [{b},5,{h},{w}]: "
+              f"bitwise equal to the plain version")
+        if i >= len(levels):
+            continue
+        bound, by = bound_ms(kw.kernel_bytes("gauss_solve", b, h, w), kw.kernel_ops("gauss_solve", b, h, w, ws))
+        kern = lambda: kw.gauss_solve(m, ws)  # noqa: E731
+        order = ""
+        if finest is None:
+            plain = lambda: kw.gauss_solve_reference(m, ws)  # noqa: E731
+            p1, k1, k2, p2 = loop_ms(plain, 10), loop_ms(kern, 50), loop_ms(kern, 50), loop_ms(plain, 10)
+            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            finest = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+            order = f", plain {plain_ms:.4f} ms (order plain, kernel, kernel, plain)"
+        else:
+            ms = loop_ms(kern, 50)
+        chunk_ms += params.iterations * ms
+        chunk_bound += params.iterations * bound
+        print(f"time gauss_solve [{b},5,{h},{w}] winsize {ws}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"{bound / ms:.1%} of the bound{order} (CUDA events) {stamp}")
+    print(f"time gauss_solve per 16-pair chunk ({len(levels)} levels x {params.iterations} iterations = "
+          f"{len(levels) * params.iterations} launches): {chunk_ms:.4f} ms, bound {chunk_bound:.4f} ms, "
+          f"{chunk_bound / chunk_ms:.1%} of the bound {stamp}")
+
+    n, h, w = frames.shape[:3]
+    cfg = PipelineConfig(emit_flow_bgr=False, flow=params)
+    reset_launches()
+    out = process_frames(frames, cfg, device=dev)
+    sync(dev)
+    launches = launches_now()
+    runs = flow_runs(n - 1, cfg.chunk, h, w, params)
+    check(launches == runs and runs["gauss_solve"] > 0,
+          f"accurate settings: expected launches {runs}, got {launches}")
+    check(np.isfinite(out["mean_magnitude"]).all() and float(out["mean_magnitude"].max()) > 0.01,
+          "accurate settings: non-finite or no motion")
+    t = timed_s(dev, lambda: process_frames(frames, cfg, device=dev))
+    print(f"slice accurate settings ({params.levels} levels, winsize {ws}, {params.iterations} iterations, "
+          f"poly_n {params.poly_n}, Gaussian window): launches {launches}; "
+          f"process_frames {(n - 1) / t:.2f} pairs/s {stamp}")
+    return {**finest, "max_abs_err": err, "launches": launches}
+
+
 def check_tables(got: dict, want: dict, tag: str) -> float:
     """The tables of two runs over the same pairs: the integer tables (hue,
     rgb_hue, centroids) bitwise equal and mean_magnitude within rtol 1e-6
@@ -464,7 +553,8 @@ def stream_phase(dev, stamp: str, frames: np.ndarray, want: dict, cfg) -> dict:
         dec = io_video.read_video_bgr(demo, DEMO_FRAMES)
         reset_launches()
         got_demo = process_video_stream(demo, cfg, DEMO_FRAMES, device=dev)
-        check(all(launches_now().values()), f"demo stream: a kernel was not launched: {launches_now()}")
+        check(all(v for k, v in launches_now().items() if k != "gauss_solve"),
+              f"demo stream: a kernel was not launched: {launches_now()}")
         check_tables(got_demo, process_frames(dec, cfg, dev), "demo stream (cv2) vs process_frames")
         print(f"stream {demo} ({dec.shape[0]} frames, cv2 decode thread): tables equal to process_frames'")
 
@@ -1466,7 +1556,8 @@ def spatial_runs(h: int, w: int, tp: int, params) -> dict:
     from opticalflowclustering_tpu_torch.flow.farneback import pyramid_plan
 
     levels = len(pyramid_plan(h, w, params))
-    return {"warp_m": 0, "box_solve": tp * levels * params.iterations, "poly_expansion": tp * levels * 2}
+    return {"warp_m": 0, "box_solve": tp * levels * params.iterations, "gauss_solve": 0,
+            "poly_expansion": tp * levels * 2}
 
 
 def spatial_phase(dev, stamp: str, frames: np.ndarray) -> dict:
@@ -2352,8 +2443,14 @@ def main() -> int:
     crop = [(16, h_k, w_k) for _, h_k, w_k, _ in reversed(pyramid_plan(*CROP_HW, params))]
     poly_times = poly_phase(dev, stamp, levels, params, crop)
 
-    # Phase 4: the slice, at 1280x720, through process_frames.
+    # Phase 3d: the Gaussian-solve kernel, bit for bit and timed, and the
+    # pipeline at OpenCV's accurate settings.
     frames = synth_frames(N, H, W)
+    accurate = FarnebackParams(warp_mode="fast", **ACCURATE)
+    gauss_levels = [(16, h_k, w_k) for _, h_k, w_k, _ in reversed(pyramid_plan(H, W, accurate))]
+    gauss = gauss_phase(dev, stamp, gauss_levels, accurate, frames, GAUSS_SHAPES)
+
+    # Phase 4: the slice, at 1280x720, through process_frames.
     launches = {}
     outs = {}
     for mode in ("fast", "fast16"):
@@ -2403,7 +2500,8 @@ def main() -> int:
     reset_launches()
     out_n = process_frames(nz, PipelineConfig(emit_flow_bgr=False, flow=FarnebackParams(warp_mode="fast")), "cuda")
     check(np.isfinite(out_n["mean_magnitude"]).all(), "noise: non-finite mean magnitude")
-    check(all(launches_now().values()), f"noise: a kernel was not launched: {launches_now()}")
+    check(all(v for k, v in launches_now().items() if k != "gauss_solve"),
+          f"noise: a kernel was not launched: {launches_now()}")
     gn = bgr2gray(torch.from_numpy(nz).to(dev)).float()
     flow_n = farneback_flow(gn[:-1], gn[1:], FarnebackParams(warp_mode="fast"))
     check(bool(torch.isfinite(flow_n).all()), "noise: non-finite flow")
@@ -2544,6 +2642,11 @@ def main() -> int:
          "launches": launches["fast"]["box_solve"], "max_abs_err": err["box_solve"],
          **kernel_times["box_solve"], "library_ms": None,
          "launches_by_path": {k: v["box_solve"] for k, v in path_launches.items()}},
+        {"name": "gauss_solve", "route": "cuda", "source": src + "gauss_solve.cu",
+         "replaces": None, "launches": gauss["launches"]["gauss_solve"],
+         **{k: v for k, v in gauss.items() if k != "launches"}, "library_ms": None,
+         "launches_by_path": {"accurate_settings": gauss["launches"]["gauss_solve"],
+                              **{k: v["gauss_solve"] for k, v in path_launches.items()}}},
         {"name": "poly_expansion", "route": "cuda", "source": src + "poly_expansion.cu",
          "replaces": None, "launches": launches["fast"]["poly_expansion"], **poly_times, "library_ms": None,
          "launches_by_path": {k: v["poly_expansion"] for k, v in path_launches.items()}},

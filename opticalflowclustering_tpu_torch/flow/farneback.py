@@ -16,11 +16,14 @@ channel-last [..., H, W, 2].
 
 On a CUDA tensor the polynomial expansion is one launch of the
 `kernels.poly` kernel (n ≤ 8), in every warp mode; a CPU tensor runs its
-plain version. For warp modes 'fast' and 'fast16' with the box window
-(winsize ≤ 17), the warp+M and box-solve steps go through
-`kernels.warp.warp_m` / `box_solve`: the hand-written CUDA kernels for a
-CUDA tensor, their plain versions for a CPU tensor. Every other configuration ('exact', 'select', the Gaussian
-window, wider windows) runs the plain PyTorch steps on the caller's device.
+plain version. For warp modes 'fast' and 'fast16' with winsize ≤ 17, the
+warp+M and solve steps go through `kernels.warp.warp_m` and, by the
+window, `box_solve` or `gauss_solve` (OpenCV's OPTFLOW_FARNEBACK_GAUSSIAN,
+2 ≤ winsize): the hand-written CUDA kernels for a CUDA tensor, their plain
+versions for a CPU tensor. Every other configuration ('exact', 'select',
+wider windows) runs the plain PyTorch steps on the caller's device. Each
+Gaussian solve, kernel or plain, runs in an `ofc.flow.gauss` span inside
+`ofc.flow.solve`.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ _BORDER = 5
 # OpenCV FarnebackUpdateMatrices edge taper.
 _BORDER_SCALE = np.array([0.14, 0.14, 0.4472, 0.4472, 0.4472], dtype=np.float32)
 _WARP_MODES = ("exact", "fast", "fast16", "select")
-# The box-solve kernel stages a halo of at most 8 rows/columns.
+# The box- and Gaussian-solve kernels stage a halo of at most 8 rows/columns.
 MAX_KERNEL_WINSIZE = 17
 # The poly-expansion kernel unrolls n up to 8 (OpenCV's poly_n is 5 or 7).
 MAX_KERNEL_POLY_N = 8
@@ -401,6 +404,17 @@ def update_matrices(
     return _update_matrices(r0, r1, dx, dy, reach=None)
 
 
+def gauss_window(winsize: int) -> np.ndarray:
+    """The Gaussian window's 2·(winsize // 2) + 1 float64 weights: sigma
+    0.3·(winsize // 2), normalised to sum 1 (each is rounded to float32
+    where it is used)."""
+    mhalf = winsize // 2
+    sigma = mhalf * 0.3
+    x = np.arange(-mhalf, mhalf + 1, dtype=np.float64)
+    kern = np.exp(-(x**2) / (2 * sigma * sigma))
+    return kern / kern.sum()
+
+
 def _update_flow(
     m: torch.Tensor, winsize: int, gaussian: bool
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -408,11 +422,7 @@ def _update_flow(
     (fx, fy) = G⁻¹h with G, h box- (or Gaussian-) accumulated over
     winsize×winsize, det regularized by 1e-3."""
     if gaussian:
-        mhalf = winsize // 2
-        sigma = mhalf * 0.3
-        x = np.arange(-mhalf, mhalf + 1, dtype=np.float64)
-        kern = np.exp(-(x**2) / (2 * sigma * sigma))
-        kern = kern / kern.sum()
+        kern = gauss_window(winsize)
         s = sep_filter_axis(m, kern, axis=-2, border="replicate")
         s = sep_filter_axis(s, kern, axis=-1, border="replicate")
     else:
@@ -455,16 +465,20 @@ def box_solve_takes(winsize: int) -> bool:
     return winsize <= MAX_KERNEL_WINSIZE
 
 
+def gauss_solve_takes(winsize: int) -> bool:
+    """Whether the gauss_solve kernel takes this Gaussian window: a radius
+    winsize // 2 of 1 to 8 (at winsize 1 the plain window's sigma is 0)."""
+    return 2 <= winsize <= MAX_KERNEL_WINSIZE
+
+
 def uses_kernels(params: FarnebackParams) -> bool:
     """Whether `farneback_flow` runs its inner loop through the kernel
     wrappers (the reference's `fused_tpu` gate, `flow/farneback.py:480-485`,
-    without the backend test: the wrappers pick kernel or plain version by
+    without the backend test, and open to the Gaussian window, which the
+    reference leaves plain: the wrappers pick kernel or plain version by
     the tensors' device)."""
-    return (
-        params.warp_mode in ("fast", "fast16")
-        and not params.gaussian_win
-        and box_solve_takes(params.winsize)
-    )
+    takes = gauss_solve_takes if params.gaussian_win else box_solve_takes
+    return params.warp_mode in ("fast", "fast16") and takes(params.winsize)
 
 
 def farneback_flow(
@@ -485,6 +499,13 @@ def farneback_flow(
     fused = uses_kernels(params)
     if fused:
         from opticalflowclustering_tpu_torch.kernels import warp as kw
+
+    def window_solve(m):
+        """(fx, fy) of M over the window: a kernel wrapper where `fused`."""
+        if not params.gaussian_win:
+            return kw.box_solve(m, params.winsize) if fused else _update_flow(m, params.winsize, False)
+        with span("ofc.flow.gauss"):
+            return kw.gauss_solve(m, params.winsize) if fused else _update_flow(m, params.winsize, True)
 
     def level_poly(img, h_k, w_k, sigma):
         smooth_sz = max(_cvround(sigma * 5) | 1, 3)
@@ -514,7 +535,7 @@ def farneback_flow(
                     r1 = kw.quantize_r1_fast16(r1)
                 m = kw.warp_m(r0, r1, fx, fy)
                 for i in range(params.iterations):
-                    fx, fy = kw.box_solve(m, params.winsize)
+                    fx, fy = window_solve(m)
                     if i < params.iterations - 1:
                         m = kw.warp_m(r0, r1, fx, fy)
             else:
@@ -524,7 +545,7 @@ def farneback_flow(
                 radius_k = max(8, params.warp_radius >> k)
                 m = update_matrices(r0, r1, fx, fy, params.warp_mode, radius_k)
                 for i in range(params.iterations):
-                    fx, fy = _update_flow(m, params.winsize, params.gaussian_win)
+                    fx, fy = window_solve(m)
                     if i < params.iterations - 1:
                         m = update_matrices(r0, r1, fx, fy, params.warp_mode, radius_k)
     return torch.stack([fx, fy], dim=-1).reshape(lead + (h, w, 2))

@@ -1,5 +1,5 @@
-// PyTorch bindings of the warp_m, box_solve, poly_expansion, loop_probe and
-// dynslice kernels.
+// PyTorch bindings of the warp_m, box_solve, gauss_solve, poly_expansion,
+// loop_probe and dynslice kernels.
 //
 // The kernels' sources include no PyTorch header; each exposes a plain C
 // launcher. This file takes tensors, checks them, launches on PyTorch's
@@ -17,6 +17,8 @@ extern "C" int ofc_warp_m(const float* r0, const float* r1, const float* fx,
                           void* stream);
 extern "C" int ofc_box_solve(const float* m, float* fx, float* fy, int b, int h,
                              int w, int radius, float inv_area, void* stream);
+extern "C" int ofc_gauss_solve(const float* m, float* fx, float* fy, int b, int h,
+                               int w, int radius, const float* taps, void* stream);
 extern "C" int ofc_poly_expansion(const float* img, float* out, int b, int h,
                                   int w, int n, const float* taps, void* stream);
 extern "C" int ofc_loop_probe(int body, const void* x, const int* idx,
@@ -81,6 +83,32 @@ void box_solve(const torch::Tensor& m, torch::Tensor fx, torch::Tensor fy,
                          static_cast<int>(radius), static_cast<float>(inv_area),
                          stream),
            "box_solve");
+}
+
+// radius, B, H and W are the C launcher's to refuse (cudaErrorInvalidValue).
+void gauss_solve(const torch::Tensor& m, torch::Tensor fx, torch::Tensor fy,
+                 int64_t radius, const torch::Tensor& taps) {
+  check(m, "m", 4);
+  check(fx, "fx", 3);
+  check(fy, "fy", 3);
+  TORCH_CHECK(taps.device().is_cpu() && taps.scalar_type() == torch::kFloat32 &&
+                  taps.is_contiguous() && taps.dim() == 1 && taps.size(0) == radius + 1,
+              "taps must be a CPU float32 vector of radius + 1");
+  const int64_t b = m.size(0), h = m.size(2), w = m.size(3);
+  TORCH_CHECK(m.size(1) == 5, "m must be [B, 5, H, W]");
+  TORCH_CHECK(fx.size(0) == b && fx.size(1) == h && fx.size(2) == w &&
+                  fy.sizes() == fx.sizes(),
+              "fx and fy must be [B, H, W]");
+  TORCH_CHECK(fx.device() == m.device() && fy.device() == m.device(),
+              "m, fx and fy must be on one device");
+  const c10::cuda::CUDAGuard guard(m.device());
+  void* stream = c10::cuda::getCurrentCUDAStream(m.get_device()).stream();
+  raise_on(ofc_gauss_solve(m.data_ptr<float>(), fx.data_ptr<float>(),
+                           fy.data_ptr<float>(), static_cast<int>(b),
+                           static_cast<int>(h), static_cast<int>(w),
+                           static_cast<int>(radius), taps.data_ptr<float>(),
+                           stream),
+           "gauss_solve");
 }
 
 // n, B, H and W are the C launcher's to refuse (cudaErrorInvalidValue);
@@ -150,6 +178,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("warp_m", &warp_m, "warp_m kernel: (r0, r1, fx, fy, m_out)");
   mod.def("box_solve", &box_solve,
           "box_solve kernel: (m, fx_out, fy_out, radius, inv_area)");
+  mod.def("gauss_solve", &gauss_solve,
+          "gauss_solve kernel: (m, fx_out, fy_out, radius, taps)");
   mod.def("poly_expansion", &poly_expansion,
           "poly_expansion kernel: (img, out, n, taps)");
   mod.def("loop_probe", &loop_probe, "loop_probe kernel: (body, x, idx, out, n)");

@@ -7,15 +7,16 @@
     ──► per-frame mean |flow|                           → telemetry CSV
 
 Frame pairs are independent, so a video goes through in chunks of
-`cfg.chunk` pairs: each chunk is copied to the device once, runs
-`chunk_step` there, and only its tables (and the rendered flow, when asked
-for) come back to the host. `process_video_stream` also overlaps the host
-with the card: a thread decodes the next chunk while the card computes the
-current one, and chunk k's tables are copied back only after chunk k+1 has
-been enqueued; with `native=True` an MJPEG AVI is decoded by the port's
-threaded C++ decoder (`io.fastio`) instead of cv2. With `overlays` (YOLO
-boxes, contour masks), `process_frames` draws them onto each rendered frame
-on the device, between the render and the grid stage.
+`cfg.chunk` pairs: each chunk is copied to the device once, straight from
+the caller's frames, runs `chunk_step` there, and only its tables (and the
+rendered flow, when asked for) come back to the host.
+`process_video_stream` also overlaps the host with the card: a thread
+decodes the next chunk while the card computes the current one, and chunk
+k's tables are copied back only after chunk k+1 has been enqueued; with
+`native=True` an MJPEG AVI is decoded by the port's threaded C++ decoder
+(`io.fastio`) instead of cv2. With `overlays` (YOLO boxes, contour masks),
+`process_frames` draws them onto each rendered frame on the device, between
+the render and the grid stage.
 """
 
 from __future__ import annotations
@@ -111,20 +112,22 @@ def chunk_step(
     return out
 
 
+def _chunk_frames(frames_bgr: np.ndarray, start: int, chunk: int) -> np.ndarray:
+    """Frames start .. start+chunk of [N,H,W,3] as one chunk [chunk+1, H, W, 3]
+    (it shares its first frame with the previous chunk's last): a view of a
+    C-contiguous clip where the clip holds them all, so nothing is copied;
+    the tail pads by repeating the final frame."""
+    c = frames_bgr[start : start + chunk + 1]
+    if c.shape[0] < chunk + 1:
+        c = np.concatenate([c, np.repeat(c[-1:], chunk + 1 - c.shape[0], axis=0)])
+    return np.ascontiguousarray(c)
+
+
 def _stack_chunks(frames_bgr: np.ndarray, chunk: int) -> tuple[np.ndarray, int]:
-    """[N,H,W,3] → overlapping chunk stack [K, chunk+1, H, W, 3] (each
-    chunk shares its first frame with the previous chunk's last; the tail
-    pads by repeating the final frame)."""
+    """[N,H,W,3] → the stack of its overlapping chunks [K, chunk+1, H, W, 3]
+    (`_chunk_frames`), and the number of pairs."""
     n_pairs = frames_bgr.shape[0] - 1
-    k = -(-n_pairs // chunk)
-    chunks = np.empty((k, chunk + 1) + frames_bgr.shape[1:], frames_bgr.dtype)
-    for j in range(k):
-        start = j * chunk
-        stop = min(start + chunk, n_pairs)
-        c = frames_bgr[start : stop + 1]
-        chunks[j, : c.shape[0]] = c
-        chunks[j, c.shape[0] :] = c[-1:]
-    return chunks, n_pairs
+    return np.stack([_chunk_frames(frames_bgr, s, chunk) for s in range(0, n_pairs, chunk)]), n_pairs
 
 
 @torch.inference_mode()
@@ -161,17 +164,16 @@ def process_frames(
     if frames_bgr.shape[0] < 2:
         raise ValueError("need at least 2 frames")
     dev = resolve_device(device)
-    with span("ofc.stack"):
-        chunks, n_pairs = _stack_chunks(frames_bgr, cfg.chunk)
+    n_pairs = frames_bgr.shape[0] - 1
     yolo = load_yolo_boxes(overlays.yolo_file) if overlays is not None and overlays.yolo_file else None
     outs = []
-    for j, chunk in enumerate(chunks):
+    for start in range(0, n_pairs, cfg.chunk):
+        with span("ofc.stack"):
+            chunk = torch.from_numpy(_chunk_frames(frames_bgr, start, cfg.chunk))
         if overlays is None:
-            out = chunk_step(torch.from_numpy(chunk), cfg, dev)
+            out = chunk_step(chunk, cfg, dev)
         else:
-            start = j * cfg.chunk
-            out = _overlay_step(torch.from_numpy(chunk), cfg, dev, overlays, yolo, start,
-                                min(cfg.chunk, n_pairs - start))
+            out = _overlay_step(chunk, cfg, dev, overlays, yolo, start, min(cfg.chunk, n_pairs - start))
         with span("ofc.readback"):
             outs.append({k: v.cpu().numpy() for k, v in out.items()})
     with span("ofc.readback"):

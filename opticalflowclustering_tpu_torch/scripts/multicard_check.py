@@ -151,7 +151,7 @@ def spatial_check(devs, h: int, w: int) -> None:
     check(tuple(flow.shape) == (2, h, w, 2) and diff <= 5e-5, f"spatial flow tp=4: max |Δ| {diff} px")
     # one box_solve launch per block, level and iteration on the card; the CPU runs the plain version
     runs = 4 * len(pyramid_plan(h + pad, w, params)) * params.iterations if devs[0].type == "cuda" else 0
-    check(launches == {"warp_m": 0, "box_solve": runs}, f"spatial flow launches {launches}, expected {runs}")
+    check(launches == {"warp_m": 0, "box_solve": runs, "gauss_solve": 0}, f"spatial flow launches {launches}, expected {runs}")
     got = spatial_hue_pipeline(prev, nxt, make_mesh({"tp": 2}, devs[:2]), "tp", grid, params)
     f = farneback_flow(prev, nxt, params)
     bgr = render_flow_hsv_bgr(f)

@@ -81,6 +81,31 @@ def test_chunk_stacking_matches_jax():
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("chunk", [1, 4, 6, 16])
+def test_chunk_frames_are_the_clips_memory_but_a_padded_tail(chunk):
+    """Each chunk process_frames uploads equals the JAX package's stacked
+    chunk, and all but a padded tail are views of the clip: nothing is
+    copied before the upload."""
+    frames = np.arange(7 * 2 * 2 * 3, dtype=np.uint8).reshape(7, 2, 2, 3)
+    want, n = jpl._stack_chunks(frames, chunk)
+    for j, start in enumerate(range(0, n, chunk)):
+        got = tpl._chunk_frames(frames, start, chunk)
+        np.testing.assert_array_equal(got, want[j])
+        assert np.shares_memory(got, frames) == (start + chunk + 1 <= frames.shape[0])
+
+
+def test_process_frames_takes_a_clip_with_negative_strides():
+    """A reversed view of a clip (which torch.from_numpy refuses) gives the
+    tables of its contiguous copy."""
+    rev = read_video_bgr(DEMO, 5)[::-1]
+    cfg = tpl.PipelineConfig(chunk=3, emit_flow_bgr=False)
+    got = tpl.process_frames(rev, cfg, device="cpu")
+    want = tpl.process_frames(np.ascontiguousarray(rev), cfg, device="cpu")
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
 def test_kmeangrids_cli_on_demo_clip(tmp_path, monkeypatch):
     """The port's CLI on the first 17 frames of the demo clip (CPU): OutCSV
     equals the committed golden demo_out/OutCSV/601_3.csv up to

@@ -108,7 +108,7 @@ def test_launch_counts_are_the_wrappers_own():
     kp.LAUNCHES["poly_expansion"] = 3
     kp.reset_launches()
     assert kp.LAUNCHES == {"poly_expansion": 0}
-    assert set(kw.LAUNCHES) == {"warp_m", "box_solve"}
+    assert set(kw.LAUNCHES) == {"warp_m", "box_solve", "gauss_solve"}
 
 
 def test_kernel_taps_and_yardstick():

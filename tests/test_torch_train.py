@@ -239,10 +239,10 @@ def test_fused_train_step_2x2_equals_1x1_with_the_wrapped_pair(fused_case, warp_
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6, msg=k)
     per_flow = len(pyramid_plan(48, 72, flow)) * flow.iterations
     if warp_mode == "fast":
-        assert n22 == {"warp_m": 12 * per_flow, "box_solve": 12 * per_flow}
-        assert n11 == {"warp_m": 3 * per_flow, "box_solve": 3 * per_flow}
+        assert n22 == {"warp_m": 12 * per_flow, "box_solve": 12 * per_flow, "gauss_solve": 0}
+        assert n11 == {"warp_m": 3 * per_flow, "box_solve": 3 * per_flow, "gauss_solve": 0}
     else:
-        assert n22 == n11 == {"warp_m": 0, "box_solve": 0}
+        assert n22 == n11 == {"warp_m": 0, "box_solve": 0, "gauss_solve": 0}
     wrapped = labels.copy()
     wrapped[:, -1] = 1 - wrapped[:, -1]
     for shape in ({"dp": 2, "sp": 2}, {"dp": 1, "sp": 1}):
