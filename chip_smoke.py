@@ -311,7 +311,23 @@ def poly_runs(n_pairs: int, chunk: int, h: int, w: int, params) -> int:
     return -(-n_pairs // chunk) * len(pyramid_plan(h, w, params)) * 2
 
 
-FLOW_KERNELS = ("warp_m", "box_solve", "gauss_solve", "poly_expansion")
+def pyramid_runs(n_pairs: int, chunk: int, h: int, w: int, params) -> int:
+    """Launches of the pyramid kernel that `process_frames` makes for
+    n_pairs pairs of h×w: one per pyramid level it takes
+    (`pyramid_kernel_takes` on the card) and image of each chunk."""
+    import types
+
+    import torch
+
+    from opticalflowclustering_tpu_torch.flow.farneback import pyramid_kernel_takes, pyramid_ksize, pyramid_plan
+
+    card = types.SimpleNamespace(device=torch.device("cuda"))
+    levels = sum(pyramid_kernel_takes(card, pyramid_ksize(s), (h, w), (h_k, w_k))
+                 for _, h_k, w_k, s in pyramid_plan(h, w, params))
+    return -(-n_pairs // chunk) * levels * 2
+
+
+FLOW_KERNELS = ("warp_m", "box_solve", "gauss_solve", "poly_expansion", "pyramid")
 NO_LAUNCH = dict.fromkeys(FLOW_KERNELS, 0)
 
 
@@ -320,11 +336,12 @@ def flow_runs(n_pairs: int, chunk: int, h: int, w: int, params, calls: int = 1) 
     make over n_pairs pairs of h×w: warp_m and the window's solve (box_solve,
     or gauss_solve for the Gaussian window) `kernel_runs` each in the warp
     modes that take them ('fast', 'fast16'), none in the others; the poly
-    expansion `poly_runs` in every mode."""
+    expansion `poly_runs` and the pyramid `pyramid_runs` in every mode."""
     warp = calls * kernel_runs(n_pairs, chunk, h, w, params) if params.warp_mode in ("fast", "fast16") else 0
     return {"warp_m": warp, "box_solve": 0 if params.gaussian_win else warp,
             "gauss_solve": warp if params.gaussian_win else 0,
-            "poly_expansion": calls * poly_runs(n_pairs, chunk, h, w, params)}
+            "poly_expansion": calls * poly_runs(n_pairs, chunk, h, w, params),
+            "pyramid": calls * pyramid_runs(n_pairs, chunk, h, w, params)}
 
 
 def add_runs(*runs: dict) -> dict:
@@ -333,20 +350,23 @@ def add_runs(*runs: dict) -> dict:
 
 
 def reset_launches() -> None:
-    """Set the launch counts of the four flow kernels to 0."""
+    """Set the launch counts of the five flow kernels to 0."""
     from opticalflowclustering_tpu_torch.kernels import poly as kp
+    from opticalflowclustering_tpu_torch.kernels import pyramid as kpyr
     from opticalflowclustering_tpu_torch.kernels import warp as kw
 
     kw.reset_launches()
     kp.reset_launches()
+    kpyr.reset_launches()
 
 
 def launches_now() -> dict:
-    """The launch counts of the four flow kernels."""
+    """The launch counts of the five flow kernels."""
     from opticalflowclustering_tpu_torch.kernels import poly as kp
+    from opticalflowclustering_tpu_torch.kernels import pyramid as kpyr
     from opticalflowclustering_tpu_torch.kernels import warp as kw
 
-    return {**kw.LAUNCHES, **kp.LAUNCHES}
+    return {**kw.LAUNCHES, **kp.LAUNCHES, **kpyr.LAUNCHES}
 
 
 def loop_ms(fn, iters: int) -> float:
@@ -416,6 +436,67 @@ def poly_phase(dev, stamp: str, levels, params, check_levels=()) -> dict:
     print(f"time poly_expansion per 16-pair chunk ({len(levels)} levels x 2 images = {2 * len(levels)} launches): "
           f"{chunk_ms:.4f} ms, bound {chunk_bound:.4f} ms, {chunk_bound / chunk_ms:.1%} of the bound {stamp}")
     return {**finest, "max_abs_err": err}
+
+
+def pyramid_phase(dev, stamp: str, configs) -> dict:
+    """Phase 3e: the pyramid kernel bit for bit its plain version (int32
+    views, so signed zeros count) at every level of each configuration of
+    `configs` ([(name, b, h, w, params)]), on integer frames laced with
+    -0.0 and subnormals; then each level's launch timed beside its bound
+    (the frames read and the level written once, over the HBM rate), and a
+    chunk's levels, 2 images each, in turns with the plain stage (plain,
+    kernel, kernel, plain). Returns per configuration the chunk's times and
+    bound and the largest |kernel - plain| measured."""
+    import torch
+
+    from opticalflowclustering_tpu_torch.flow.farneback import pyramid_ksize, pyramid_plan
+    from opticalflowclustering_tpu_torch.kernels import pyramid as kpyr
+    from opticalflowclustering_tpu_torch.utils.profiling import bound_ms
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    res = {}
+    for name, b, h, w, params in configs:
+        x = torch.randint(0, 256, (b, h, w), generator=gen, device=dev).float()
+        x[..., ::7, ::5] = -0.0
+        x[..., 3::11, ::3] = 1e-40
+        levels = [(pyramid_ksize(s), s, (h_k, w_k)) for _, h_k, w_k, s in pyramid_plan(h, w, params)]
+        err = 0.0
+        for ks, s, hw in levels:
+            got = kpyr.pyramid_level(x, ks, s, hw)
+            want = kpyr.pyramid_reference(x, ks, s, hw)
+            sync(dev)
+            off = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            err = max(err, float((got - want).abs().max()))
+            check(off == 0, f"pyramid {name} [{b},{h},{w}] to {hw[0]}x{hw[1]} ksize {ks}: "
+                            f"{off} values differ in their bits")
+        del got, want
+        print(f"check pyramid {name} [{b},{h},{w}] to "
+              f"{', '.join(f'{hh}x{ww} (ksize {ks})' for ks, _, (hh, ww) in levels)}: "
+              f"bitwise equal to the plain version, max_abs_err {err}")
+        for ks, s, hw in levels:
+            lb, lby = bound_ms(kpyr.kernel_bytes(b, h, w, *hw), kpyr.kernel_ops(ks, b, h, w, *hw))
+            ms = loop_ms(lambda ks=ks, s=s, hw=hw: kpyr.pyramid_level(x, ks, s, hw), 50)
+            print(f"time pyramid {name} [{b},{h},{w}] to {hw[0]}x{hw[1]} ksize {ks}: kernel {ms:.4f} ms, "
+                  f"bound {lb:.4f} ms ({lby}), {lb / ms:.1%} of the bound (CUDA events) {stamp}")
+
+        def chunk(fn):
+            def run():
+                for _ in range(2):
+                    for ks, s, hw in levels:
+                        fn(x, ks, s, hw)
+            return run
+
+        bound, by = bound_ms(2 * sum(kpyr.kernel_bytes(b, h, w, *hw) for _, _, hw in levels),
+                             2 * sum(kpyr.kernel_ops(ks, b, h, w, *hw) for ks, _, hw in levels))
+        kern, plain = chunk(kpyr.pyramid_level), chunk(kpyr.pyramid_reference)
+        p1, k1, k2, p2 = loop_ms(plain, 3), loop_ms(kern, 20), loop_ms(kern, 20), loop_ms(plain, 3)
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        print(f"time pyramid {name} per 16-pair chunk ({len(levels)} levels x 2 images = {2 * len(levels)} "
+              f"launches): kernel {ms:.4f} ms, bound {bound:.4f} ms, {bound / ms:.1%} of the bound; plain "
+              f"{plain_ms:.4f} ms, {plain_ms / ms:.1f}x the kernel (order plain, kernel, kernel, plain) "
+              f"(CUDA events) {stamp}")
+        res[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+    return res
 
 
 def gauss_phase(dev, stamp: str, levels, params, frames, check_shapes=()) -> dict:
@@ -1552,12 +1633,13 @@ def overlay_ops_phases(dev, stamp: str, frames: np.ndarray) -> dict:
 def spatial_runs(h: int, w: int, tp: int, params) -> dict:
     """Launches of one row-sharded flow: box_solve one per block, pyramid
     level and iteration, the poly expansion one per block, level and image
-    (the batch goes in one launch), warp_m none."""
+    (the batch goes in one launch), warp_m none, the pyramid kernel none
+    (the blocks blur their halo-extended rows with the plain blur)."""
     from opticalflowclustering_tpu_torch.flow.farneback import pyramid_plan
 
     levels = len(pyramid_plan(h, w, params))
     return {"warp_m": 0, "box_solve": tp * levels * params.iterations, "gauss_solve": 0,
-            "poly_expansion": tp * levels * 2}
+            "poly_expansion": tp * levels * 2, "pyramid": 0}
 
 
 def spatial_phase(dev, stamp: str, frames: np.ndarray) -> dict:
@@ -2443,10 +2525,16 @@ def main() -> int:
     crop = [(16, h_k, w_k) for _, h_k, w_k, _ in reversed(pyramid_plan(*CROP_HW, params))]
     poly_times = poly_phase(dev, stamp, levels, params, crop)
 
+    # Phase 3e: the pyramid kernel, bit for bit and timed, at the levels of
+    # bounce720-fast, bounce720-gauss and the crop.
+    accurate = FarnebackParams(warp_mode="fast", **ACCURATE)
+    pyramid_times = pyramid_phase(dev, stamp, [("bounce720-fast", 16, H, W, params),
+                                               ("bounce720-gauss", 16, H, W, accurate),
+                                               ("cropflow-fast", 16, *CROP_HW, params)])
+
     # Phase 3d: the Gaussian-solve kernel, bit for bit and timed, and the
     # pipeline at OpenCV's accurate settings.
     frames = synth_frames(N, H, W)
-    accurate = FarnebackParams(warp_mode="fast", **ACCURATE)
     gauss_levels = [(16, h_k, w_k) for _, h_k, w_k, _ in reversed(pyramid_plan(H, W, accurate))]
     gauss = gauss_phase(dev, stamp, gauss_levels, accurate, frames, GAUSS_SHAPES)
 
@@ -2650,6 +2738,11 @@ def main() -> int:
         {"name": "poly_expansion", "route": "cuda", "source": src + "poly_expansion.cu",
          "replaces": None, "launches": launches["fast"]["poly_expansion"], **poly_times, "library_ms": None,
          "launches_by_path": {k: v["poly_expansion"] for k, v in path_launches.items()}},
+        {"name": "pyramid", "route": "cuda", "source": src + "pyramid.cu",
+         "replaces": None, "launches": launches["fast"]["pyramid"], **pyramid_times["bounce720-fast"],
+         "library_ms": None, "by_configuration": pyramid_times,
+         "launches_by_path": {"accurate_settings": gauss["launches"]["pyramid"],
+                              **{k: v["pyramid"] for k, v in path_launches.items()}}},
     ] + probe_kernels
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -14,9 +14,11 @@ float32 and the flow travels between steps as two planes fx, fy [B, H, W],
 the layout the CUDA kernels take. `farneback_flow` returns the reference's
 channel-last [..., H, W, 2].
 
-On a CUDA tensor the polynomial expansion is one launch of the
-`kernels.poly` kernel (n ≤ 8), in every warp mode; a CPU tensor runs its
-plain version. For warp modes 'fast' and 'fast16' with winsize ≤ 17, the
+On a CUDA tensor each pyramid level's blur and downsample is one launch
+of the `kernels.pyramid` kernel where the level's sides divide the frame's
+(`pyramid_kernel_takes`), and the polynomial expansion one launch of the
+`kernels.poly` kernel (n ≤ 8), in every warp mode; a CPU tensor runs their
+plain versions. For warp modes 'fast' and 'fast16' with winsize ≤ 17, the
 warp+M and solve steps go through `kernels.warp.warp_m` and, by the
 window, `box_solve` or `gauss_solve` (OpenCV's OPTFLOW_FARNEBACK_GAUSSIAN,
 2 ≤ winsize): the hand-written CUDA kernels for a CUDA tensor, their plain
@@ -52,6 +54,8 @@ _WARP_MODES = ("exact", "fast", "fast16", "select")
 MAX_KERNEL_WINSIZE = 17
 # The poly-expansion kernel unrolls n up to 8 (OpenCV's poly_n is 5 or 7).
 MAX_KERNEL_POLY_N = 8
+# The pyramid kernel's taps: ksize 79, pyr_scale 0.5 through level 5.
+MAX_KERNEL_PYRAMID_RADIUS = 39
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +138,32 @@ def _poly_exp_consts(n: int, sigma: float):
         float(invG[0, 3]),
         float(invG[3, 3]),
         float(invG[5, 5]),
+    )
+
+
+def pyramid_ksize(sigma: float) -> int:
+    """The presmoothing blur's size at a level of sigma: OpenCV's
+    max(cvRound(5σ) | 1, 3)."""
+    return max(_cvround(sigma * 5) | 1, 3)
+
+
+def pyramid_kernel_takes(
+    img: torch.Tensor, ksize: int, hw: tuple[int, int], level_hw: tuple[int, int]
+) -> bool:
+    """Whether `farneback_flow` builds the level of `img` (H×W → h_k×w_k,
+    blurred by ksize taps) with the pyramid kernel: a CUDA tensor, each
+    side's ratio a whole number, the radius at most the kernel's and below
+    each side."""
+    (h, w), (h_k, w_k) = hw, level_hw
+    r = ksize // 2
+    return (
+        img.device.type == "cuda"
+        and 0 < h_k <= h
+        and 0 < w_k <= w
+        and h % h_k == 0
+        and w % w_k == 0
+        and r <= MAX_KERNEL_PYRAMID_RADIUS
+        and r < min(h, w)
     )
 
 
@@ -508,9 +538,14 @@ def farneback_flow(
             return kw.gauss_solve(m, params.winsize) if fused else _update_flow(m, params.winsize, True)
 
     def level_poly(img, h_k, w_k, sigma):
-        smooth_sz = max(_cvround(sigma * 5) | 1, 3)
+        smooth_sz = pyramid_ksize(sigma)
         with span("ofc.flow.pyramid"):
-            level = resize_linear(gaussian_blur(img, smooth_sz, sigma, border="reflect101"), (h_k, w_k))
+            if pyramid_kernel_takes(img, smooth_sz, (h, w), (h_k, w_k)):
+                from opticalflowclustering_tpu_torch.kernels import pyramid as kpyr
+
+                level = kpyr.pyramid_level(img.contiguous(), smooth_sz, sigma, (h_k, w_k))
+            else:
+                level = resize_linear(gaussian_blur(img, smooth_sz, sigma, border="reflect101"), (h_k, w_k))
         with span("ofc.flow.poly"):
             return poly_expansion(level, params.poly_n, params.poly_sigma, channel_first=True)
 

@@ -92,6 +92,7 @@ def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda", device
     from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams, farneback_flow
     from opticalflowclustering_tpu_torch.flow.render import render_flow_hsv_bgr
     from opticalflowclustering_tpu_torch.kernels import poly as kp
+    from opticalflowclustering_tpu_torch.kernels import pyramid as kpyr
     from opticalflowclustering_tpu_torch.kernels import warp as kw
     from opticalflowclustering_tpu_torch.models.bounce_classifier import adamw, init_classifier
     from opticalflowclustering_tpu_torch.parallel.mesh import make_mesh
@@ -118,16 +119,18 @@ def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda", device
     def done(name: str, line: str) -> None:
         if home.type == "cuda":
             torch.cuda.synchronize(home)
-        launches[name] = {**kw.LAUNCHES, **kp.LAUNCHES}
+        launches[name] = {**kw.LAUNCHES, **kp.LAUNCHES, **kpyr.LAUNCHES}
         print(f"{line}; launches {launches[name]}", flush=True)
         kw.reset_launches()
         kp.reset_launches()
+        kpyr.reset_launches()
 
     def gray(a):
         return torch.from_numpy(a).to(home)
 
     kw.reset_launches()
     kp.reset_launches()
+    kpyr.reset_launches()
 
     # --- pass 1: the pipeline, sharded vs unsharded, bitwise ---
     rng = np.random.default_rng(1)

@@ -17,7 +17,7 @@ import pathlib
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / ".torch_ext_build"
-SOURCES = ("bindings.cpp", "warp_m.cu", "box_solve.cu", "gauss_solve.cu", "poly_expansion.cu", "probes.cu")
+SOURCES = ("bindings.cpp", "warp_m.cu", "box_solve.cu", "gauss_solve.cu", "poly_expansion.cu", "pyramid.cu", "probes.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false")
 
 

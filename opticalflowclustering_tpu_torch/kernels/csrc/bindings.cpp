@@ -1,11 +1,11 @@
 // PyTorch bindings of the warp_m, box_solve, gauss_solve, poly_expansion,
-// loop_probe and dynslice kernels.
+// pyramid_level, loop_probe and dynslice kernels.
 //
 // The kernels' sources include no PyTorch header; each exposes a plain C
 // launcher. This file takes tensors, checks them, launches on PyTorch's
 // current stream of the tensors' device and raises if the launch failed.
 // Outputs are allocated by the Python wrappers (kernels/warp.py,
-// kernels/poly.py, kernels/probes.py).
+// kernels/poly.py, kernels/pyramid.py, kernels/probes.py).
 
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
@@ -21,6 +21,9 @@ extern "C" int ofc_gauss_solve(const float* m, float* fx, float* fy, int b, int 
                                int w, int radius, const float* taps, void* stream);
 extern "C" int ofc_poly_expansion(const float* img, float* out, int b, int h,
                                   int w, int n, const float* taps, void* stream);
+extern "C" int ofc_pyramid_level(const float* img, float* out, int b, int h,
+                                 int w, int ho, int wo, int radius,
+                                 const float* taps, void* stream);
 extern "C" int ofc_loop_probe(int body, const void* x, const int* idx,
                               float* out, int rows, int n, void* stream);
 extern "C" int ofc_dynslice(const void* x, const int* off, float* out,
@@ -133,6 +136,27 @@ void poly_expansion(const torch::Tensor& img, torch::Tensor out, int64_t n,
            "poly_expansion");
 }
 
+// The factors and the radius are the C launcher's to refuse
+// (cudaErrorInvalidValue); kernels/pyramid.py checks them first.
+void pyramid_level(const torch::Tensor& img, torch::Tensor out, int64_t radius,
+                   const torch::Tensor& taps) {
+  check(img, "img", 3);
+  check(out, "out", 3);
+  TORCH_CHECK(taps.device().is_cpu() && taps.scalar_type() == torch::kFloat32 &&
+                  taps.is_contiguous() && taps.dim() == 1 && taps.size(0) == radius + 1,
+              "taps must be a CPU float32 vector of radius + 1");
+  TORCH_CHECK(out.size(0) == img.size(0), "img and out must hold one batch");
+  TORCH_CHECK(out.device() == img.device(), "img and out must be on one device");
+  const c10::cuda::CUDAGuard guard(img.device());
+  void* stream = c10::cuda::getCurrentCUDAStream(img.get_device()).stream();
+  raise_on(ofc_pyramid_level(img.data_ptr<float>(), out.data_ptr<float>(),
+                             static_cast<int>(img.size(0)), static_cast<int>(img.size(1)),
+                             static_cast<int>(img.size(2)), static_cast<int>(out.size(1)),
+                             static_cast<int>(out.size(2)), static_cast<int>(radius),
+                             taps.data_ptr<float>(), stream),
+           "pyramid_level");
+}
+
 constexpr int64_t kLanes = 128;
 constexpr int64_t kTakeBf16 = 3;  // index of take_bf16 in probes.py BODIES
 
@@ -182,6 +206,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
           "gauss_solve kernel: (m, fx_out, fy_out, radius, taps)");
   mod.def("poly_expansion", &poly_expansion,
           "poly_expansion kernel: (img, out, n, taps)");
+  mod.def("pyramid_level", &pyramid_level,
+          "pyramid_level kernel: (img, out, radius, taps)");
   mod.def("loop_probe", &loop_probe, "loop_probe kernel: (body, x, idx, out, n)");
   mod.def("dynslice", &dynslice, "dynslice kernel: (x, off, out)");
 }

@@ -227,22 +227,29 @@ def test_flow_at_the_accurate_settings_matches_jax(mode):
 
 def _rehearse_gauss_phase(monkeypatch, gauss):
     """chip_smoke.gauss_phase on the CPU: the kernel entries counted plain
-    versions (the poly expansion's taken on CPU tensors too, as on the
-    card), with `gauss` for gauss_solve; the CUDA-event timer one
-    host-clocked call."""
+    versions (the poly expansion's and the pyramid's taken on CPU tensors
+    too, as on the card), with `gauss` for gauss_solve; the CUDA-event
+    timer one host-clocked call."""
     import time
+
+    import types
 
     import chip_smoke
     from opticalflowclustering_tpu_torch.kernels import poly as kp
+    from opticalflowclustering_tpu_torch.kernels import pyramid as kpyr
 
     for mod, name, plain in ((kw, "warp_m", kw.warp_m_reference), (kw, "gauss_solve", gauss),
-                             (kp, "poly_expansion", kp.poly_expansion_reference)):
+                             (kp, "poly_expansion", kp.poly_expansion_reference),
+                             (kpyr, "pyramid", kpyr.pyramid_reference)):
         def run(*args, mod=mod, name=name, plain=plain):
             mod.LAUNCHES[name] += 1
             return plain(*args)
 
-        monkeypatch.setattr(mod, name, run)
+        monkeypatch.setattr(mod, "pyramid_level" if mod is kpyr else name, run)
     monkeypatch.setattr(tfb, "poly_kernel_takes", lambda img, n: n <= tfb.MAX_KERNEL_POLY_N)
+    card = types.SimpleNamespace(device=torch.device("cuda"))
+    takes = tfb.pyramid_kernel_takes
+    monkeypatch.setattr(tfb, "pyramid_kernel_takes", lambda img, *args: takes(card, *args))
 
     def host_ms(fn, iters):
         t0 = time.perf_counter()
@@ -270,7 +277,7 @@ def test_chip_smoke_gauss_phase_rehearsal(monkeypatch, capsys):
     assert got["bound_ms"] == pytest.approx(2 * 40 * 72 * 28 / 3.35e12 * 1e3)
     levels = len(tfb.pyramid_plan(96, 160, params))
     assert got["launches"] == {"warp_m": 2 * levels, "box_solve": 0, "gauss_solve": 2 * levels,
-                               "poly_expansion": 2 * levels}
+                               "poly_expansion": 2 * levels, "pyramid": 2 * levels}
     out = capsys.readouterr().out
     for tag in ("check gauss_solve winsize 3..17 (odd) [2,5,40,72]: bitwise equal to the plain version",
                 "check gauss_solve winsize 3..17 (odd) [1,5,5,7]: bitwise equal to the plain version",

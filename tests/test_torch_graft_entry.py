@@ -20,7 +20,8 @@ def test_dryrun_multichip_on_cpu(capsys):
     (the plain versions run on the CPU)."""
     launches = graft_entry.dryrun_multichip(4, device="cpu")
     assert list(launches) == ["1", "1.5", "1.6", "1.7", "1.75", "2"]
-    assert all(v == {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 0} for v in launches.values())
+    assert all(v == {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 0, "pyramid": 0}
+               for v in launches.values())
     out = capsys.readouterr().out
     for tag in ("flagship pipeline ok (bitwise) on dp=2×sp=2 mesh — hue table (4, 4, 24)",
                 "spatial TP ok (max |Δ| 0.0e+00 px) — 192-row frame across 4 row shards",

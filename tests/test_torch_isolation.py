@@ -465,24 +465,31 @@ def test_spatial_entry_and_extras_modules_import_no_jax_or_cv2():
 
 def _rehearse_on_cpu(monkeypatch):
     """chip_smoke's new phases on the CPU: the kernel entries are counted
-    plain versions (the poly expansion's taken on CPU tensors too, as on the
-    card), "cuda" resolves to the CPU, one timing repeat, and the cv2 demo
-    check reads 5 frames."""
+    plain versions (the poly expansion's and the pyramid's taken on CPU
+    tensors too, as on the card), "cuda" resolves to the CPU, one timing
+    repeat, and the cv2 demo check reads 5 frames."""
+    import types
+
     import chip_smoke
     from opticalflowclustering_tpu_torch import runtime
     from opticalflowclustering_tpu_torch.flow import farneback
     from opticalflowclustering_tpu_torch.kernels import poly as kp
+    from opticalflowclustering_tpu_torch.kernels import pyramid as kpyr
     from opticalflowclustering_tpu_torch.kernels import warp as kw
     from opticalflowclustering_tpu_torch.pipeline import bounce
 
     for mod, name, plain in ((kw, "warp_m", kw.warp_m_reference), (kw, "box_solve", kw.box_solve_reference),
-                             (kp, "poly_expansion", kp.poly_expansion_reference)):
+                             (kp, "poly_expansion", kp.poly_expansion_reference),
+                             (kpyr, "pyramid", kpyr.pyramid_reference)):
         def run(*args, mod=mod, name=name, plain=plain):
             mod.LAUNCHES[name] += 1
             return plain(*args)
 
-        monkeypatch.setattr(mod, name, run)
+        monkeypatch.setattr(mod, "pyramid_level" if mod is kpyr else name, run)
     monkeypatch.setattr(farneback, "poly_kernel_takes", lambda img, n: n <= farneback.MAX_KERNEL_POLY_N)
+    card = types.SimpleNamespace(device=torch.device("cuda"))
+    takes = farneback.pyramid_kernel_takes
+    monkeypatch.setattr(farneback, "pyramid_kernel_takes", lambda img, *args: takes(card, *args))
     real = runtime.resolve_device
 
     def to_cpu(name):
@@ -511,7 +518,8 @@ def test_chip_smoke_stream_and_findcosine_phases_rehearsal(monkeypatch, capsys):
     cfg = bounce.PipelineConfig(chunk=4, flow=bounce.FarnebackParams(warp_mode="fast"))
     want = bounce.process_frames(frames, cfg, dev)
     launches = chip_smoke.stream_phase(dev, "[cpu rehearsal]", frames, want, cfg)
-    assert launches == {"warp_m": 24, "box_solve": 24, "gauss_solve": 0, "poly_expansion": 16}  # 2 chunks x 4 levels x 2 images
+    assert launches == {"warp_m": 24, "box_solve": 24, "gauss_solve": 0, "poly_expansion": 16,
+                        "pyramid": 16}  # 2 chunks x 4 levels x 2 images
     series = want["hue_table"].astype(np.float32).mean(axis=1)
     chip_smoke.findcosine_phase(series, 2, 3)
     out = capsys.readouterr().out
@@ -538,12 +546,14 @@ def test_chip_smoke_queue_and_temporal_phases_rehearsal_without_cv2(monkeypatch,
     clips = [synth_frames(3, 288, 512, seed=s) for s in range(3)]
     launches = chip_smoke.queue_phase(dev, "[cpu rehearsal]", clips, cfg)
     assert io_video.read_video_bgr is real_read
-    assert launches == {"queue": {"warp_m": 36, "box_solve": 36, "gauss_solve": 0, "poly_expansion": 24},
-                        "dp_queue": {"warp_m": 60, "box_solve": 60, "gauss_solve": 0, "poly_expansion": 40}}
+    assert launches == {"queue": {"warp_m": 36, "box_solve": 36, "gauss_solve": 0, "poly_expansion": 24, "pyramid": 24},
+                        "dp_queue": {"warp_m": 60, "box_solve": 60, "gauss_solve": 0, "poly_expansion": 40,
+                                     "pyramid": 40}}
     videos = np.stack([synth_frames(2, 288, 512, seed=s) for s in (4, 5)])
     launches = chip_smoke.temporal_phase(dev, videos, cfg)
-    assert launches == {"temporal": {"warp_m": 48, "box_solve": 48, "gauss_solve": 0, "poly_expansion": 32},
-                        "temporal_unsharded": {"warp_m": 12, "box_solve": 12, "gauss_solve": 0, "poly_expansion": 8}}
+    assert launches == {"temporal": {"warp_m": 48, "box_solve": 48, "gauss_solve": 0, "poly_expansion": 32, "pyramid": 32},
+                        "temporal_unsharded": {"warp_m": 12, "box_solve": 12, "gauss_solve": 0, "poly_expansion": 8,
+                                               "pyramid": 8}}
     out = capsys.readouterr().out
     for tag in ("dp queue on a 2x2 mesh of cpu", "'batches': 1", "decode from memory",
                 "time process_video_queue 3 videos", "time process_video_queue_dp 3 videos",
@@ -623,12 +633,14 @@ def test_chip_smoke_model_phases_rehearsal(monkeypatch, capsys):
     launches = chip_smoke.model_phases(dev, "[cpu rehearsal]", flow_bgr, series, videos)
     levels = len(pyramid_plan(96, 128, bounce.FarnebackParams()))
     per_flow = levels * 3
-    zero = {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 0}
+    zero = {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 0, "pyramid": 0}
     assert launches == {
         "kmeans": zero, "quantize": zero, "colorkmeans": zero, "serving": zero, "smallcnn": zero,
         "trainbounce": zero,
-        "fused_train_2x2": {"warp_m": 12 * per_flow, "box_solve": 12 * per_flow, "gauss_solve": 0, "poly_expansion": 12 * 2 * levels},
-        "fused_train_1x1": {"warp_m": 3 * per_flow, "box_solve": 3 * per_flow, "gauss_solve": 0, "poly_expansion": 3 * 2 * levels},
+        "fused_train_2x2": {"warp_m": 12 * per_flow, "box_solve": 12 * per_flow, "gauss_solve": 0,
+                            "poly_expansion": 12 * 2 * levels, "pyramid": 12 * 2 * levels},
+        "fused_train_1x1": {"warp_m": 3 * per_flow, "box_solve": 3 * per_flow, "gauss_solve": 0,
+                            "poly_expansion": 3 * 2 * levels, "pyramid": 3 * 2 * levels},
     }
     out = capsys.readouterr().out
     for tag in ("kmeans_batched k=3 n_iter=30 over 1050 cells x 400 px", "time kmeans_batched 1050 cells",
@@ -661,11 +673,14 @@ def test_chip_smoke_surface_phases_rehearsal(monkeypatch, capsys):
     rgb_series = np.random.default_rng(1).integers(0, 180, 40).astype(np.float32)
     launches = chip_smoke.surface_phases(dev, "[cpu rehearsal]", frames, series, rgb_series)
     out = capsys.readouterr().out
-    zero = {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 0}
+    zero = {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 0, "pyramid": 0}
     levels = len(pyramid_plan(144, 256, bounce.FarnebackParams())) + len(pyramid_plan(232, 220, bounce.FarnebackParams()))
     epe = 2 * 3 * levels  # fast and fast16 on both clips
-    assert launches["epe"] == {"warp_m": epe, "box_solve": epe, "gauss_solve": 0, "poly_expansion": 3 * 2 * levels}  # and exact
-    drawgrids = {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 2 * len(pyramid_plan(144, 256, bounce.FarnebackParams()))}
+    assert launches["epe"] == {"warp_m": epe, "box_solve": epe, "gauss_solve": 0, "poly_expansion": 3 * 2 * levels,
+                               "pyramid": 3 * 2 * levels}  # and exact
+    drawgrids_levels = 2 * len(pyramid_plan(144, 256, bounce.FarnebackParams()))
+    drawgrids = {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": drawgrids_levels,
+                 "pyramid": drawgrids_levels}
     assert {k: launches[k] for k in ("drawgrids", "celltree", "vectordistance")} == {
         "drawgrids": drawgrids, "celltree": zero, "vectordistance": zero}
     assert set(launches) == {"epe", "drawgrids", "celltree", "vectordistance"}
@@ -715,8 +730,8 @@ def test_chip_smoke_overlay_and_ops_phases_rehearsal(monkeypatch, capsys):
     monkeypatch.setattr(chip_smoke, "OPS_CMP_HW", (144, 256))
     monkeypatch.setattr(profiling, "event_ms", host_ms)
     launches = chip_smoke.overlay_ops_phases(torch.device("cpu"), "[cpu rehearsal]", synth_frames(5, 288, 512))
-    assert launches == {"overlay": {"warp_m": 12, "box_solve": 12, "gauss_solve": 0, "poly_expansion": 8},
-                        "ops": {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 0}}
+    assert launches == {"overlay": {"warp_m": 12, "box_solve": 12, "gauss_solve": 0, "poly_expansion": 8, "pyramid": 8},
+                        "ops": {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 0, "pyramid": 0}}
     out = capsys.readouterr().out
     for tag in ("overlay: kmeangrids with its default flags (overlays on) --device cuda on 5 frames 512x288 with 2 "
                 "boxes and ", "OutCSV/clip.csv: 4 frames x 350 cells", "table bitwise equal to grid_cluster_stage",
@@ -762,18 +777,20 @@ def test_chip_smoke_spatial_dryrun_extras_phases_rehearsal(monkeypatch, capsys):
     monkeypatch.setattr(graft_entry, "entry", small_entry)
     launches = chip_smoke.spatial_dryrun_extras_phases(torch.device("cpu"), "[cpu rehearsal]",
                                                        synth_frames(5, 336, 128))
-    # 2 blocks x 3 levels at 336x128: box_solve x 3 iterations, the poly expansion x 2 images
-    box = {"warp_m": 0, "box_solve": 2 * 3 * 3, "gauss_solve": 0, "poly_expansion": 2 * 3 * 2}
-    zero = {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 0}
+    # 2 blocks x 3 levels at 336x128: box_solve x 3 iterations, the poly expansion x 2 images; the
+    # blocks blur with the plain blur, so the pyramid kernel runs only in unsharded flows
+    box = {"warp_m": 0, "box_solve": 2 * 3 * 3, "gauss_solve": 0, "poly_expansion": 2 * 3 * 2, "pyramid": 0}
+    zero = {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 0, "pyramid": 0}
     # levels=1 is 2 pyramid levels: 4 blocks x 2 levels x 2 images, and the unsharded flow's 4
-    tp4 = {"warp_m": 0, "box_solve": 24, "gauss_solve": 0, "poly_expansion": 20}
+    tp4 = {"warp_m": 0, "box_solve": 24, "gauss_solve": 0, "poly_expansion": 20, "pyramid": 4}
     assert launches == {
         "spatial_hue_tp2": box, "spatial_flow_tp2": box,
-        "spatial_padded_tp4": {"warp_m": 0, "box_solve": 36, "gauss_solve": 0, "poly_expansion": 24},
-        "dryrun_1": {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 20}, "dryrun_1.5": tp4, "dryrun_1.6": tp4,
-        "dryrun_1.7": tp4, "dryrun_1.75": {"warp_m": 45, "box_solve": 45, "gauss_solve": 0, "poly_expansion": 30},
-        "dryrun_2": {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 16},
-        "entry": {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 6}, "extras": zero}
+        "spatial_padded_tp4": {"warp_m": 0, "box_solve": 36, "gauss_solve": 0, "poly_expansion": 24, "pyramid": 0},
+        "dryrun_1": {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 20, "pyramid": 20},
+        "dryrun_1.5": tp4, "dryrun_1.6": tp4, "dryrun_1.7": tp4,
+        "dryrun_1.75": {"warp_m": 45, "box_solve": 45, "gauss_solve": 0, "poly_expansion": 30, "pyramid": 30},
+        "dryrun_2": {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 16, "pyramid": 16},
+        "entry": {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 6, "pyramid": 6}, "extras": zero}
     out = capsys.readouterr().out
     for tag in ("check box_solve at the M-region shapes of the tp=2 and tp=4 blocks: bitwise",
                 "spatial 4 pairs 128x336, FarnebackParams() (3 levels): spatial_hue_pipeline on a tp=2 mesh of cpu: "
@@ -838,8 +855,8 @@ def test_chip_smoke_native_decode_phase_rehearsal(monkeypatch, capsys):
     real = (fastio.stream_mjpeg_avi, io_video.stream_video_chunks)
     cfg = bounce.PipelineConfig(chunk=4, flow=bounce.FarnebackParams(warp_mode="fast"))
     launches = chip_smoke.native_decode_phase(torch.device("cpu"), "[cpu rehearsal]", synth_frames(7, 288, 512), cfg)
-    runs = {"warp_m": 24, "box_solve": 24, "gauss_solve": 0, "poly_expansion": 16}
-    small = {"warp_m": 6, "box_solve": 6, "gauss_solve": 0, "poly_expansion": 4}
+    runs = {"warp_m": 24, "box_solve": 24, "gauss_solve": 0, "poly_expansion": 16, "pyramid": 16}
+    small = {"warp_m": 6, "box_solve": 6, "gauss_solve": 0, "poly_expansion": 4, "pyramid": 4}
     assert launches == {"native_stream": runs, "native_stream_progressive": runs, "native_stream_sof9": small,
                         "native_stream_sof10": small}
     assert (fastio.stream_mjpeg_avi, io_video.stream_video_chunks) == real
@@ -879,7 +896,8 @@ def test_chip_smoke_select_phase_rehearsal(monkeypatch, capsys):
 
     chip_smoke, _, _ = _rehearse_on_cpu(monkeypatch)
     launches = chip_smoke.select_phase(torch.device("cpu"), "[cpu rehearsal]", synth_frames(5, 144, 256))
-    poly = {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 6}  # 1 flow x 3 levels x 2 images, no warp kernel
+    # 1 flow x 3 levels x 2 images, no warp kernel
+    poly = {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 6, "pyramid": 6}
     assert launches == {"select_flow_synthetic": poly, "select_flow_demo": poly, "select_process_frames": poly}
     out = capsys.readouterr().out
     for tag in ("select flow, 4 pairs of synthetic 256x144", "card vs CPU mean EPE 0 px (bound 0.001), bitwise True",
