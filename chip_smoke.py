@@ -76,6 +76,7 @@ import time
 
 import numpy as np
 
+from opticalflowclustering_tpu_torch import kernels
 from opticalflowclustering_tpu_torch.scripts.clips import noise_frames, synth_frames
 from opticalflowclustering_tpu_torch.utils.profiling import card_line
 
@@ -168,7 +169,6 @@ def probe_phase(dev, stamp: str) -> list[dict]:
     import torch
 
     from opticalflowclustering_tpu_torch.kernels import probes
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
     from opticalflowclustering_tpu_torch.scripts import gather_cost_probe as gcp
     from opticalflowclustering_tpu_torch.scripts import profile_r4 as pr4
     from opticalflowclustering_tpu_torch.utils import profiling
@@ -212,11 +212,11 @@ def probe_phase(dev, stamp: str) -> list[dict]:
     dyn_bound, dyn_by = profiling.bound_ms(*probes.dynslice_cost())
 
     # The probe path: both scripts at their full sizes.
-    probes.reset_launches()
-    kw.reset_launches()
+    kernels.reset_launches()
     g = gcp.run_all(dev, stamp)
     r = pr4.run_all(dev, stamp)
-    launches, warp_launches = dict(probes.LAUNCHES), dict(kw.LAUNCHES)
+    launches = {k: kernels.LAUNCHES[k] for k in ("loop_probe", "dynslice")}
+    warp_launches = kernels.flow_launches()
     print(f"probe path: launches {launches}, {warp_launches} (a call captured into a CUDA graph counts once)")
     check(all(v > 0 for v in launches.values()), f"a probe kernel was not launched: {launches}")
     check(warp_launches["warp_m"] > 0 and warp_launches["box_solve"] > 0,
@@ -313,22 +313,14 @@ def poly_runs(n_pairs: int, chunk: int, h: int, w: int, params) -> int:
 
 def pyramid_runs(n_pairs: int, chunk: int, h: int, w: int, params) -> int:
     """Launches of the pyramid kernel that `process_frames` makes for
-    n_pairs pairs of h×w: one per pyramid level it takes
-    (`pyramid_kernel_takes` on the card) and image of each chunk."""
-    import types
+    n_pairs pairs of h×w: one per pyramid level it takes (`pyramid_takes`)
+    and image of each chunk."""
+    from opticalflowclustering_tpu_torch.flow.farneback import pyramid_ksize, pyramid_plan
+    from opticalflowclustering_tpu_torch.kernels.pyramid import pyramid_takes
 
-    import torch
-
-    from opticalflowclustering_tpu_torch.flow.farneback import pyramid_kernel_takes, pyramid_ksize, pyramid_plan
-
-    card = types.SimpleNamespace(device=torch.device("cuda"))
-    levels = sum(pyramid_kernel_takes(card, pyramid_ksize(s), (h, w), (h_k, w_k))
+    levels = sum(pyramid_takes(pyramid_ksize(s), (h, w), (h_k, w_k))
                  for _, h_k, w_k, s in pyramid_plan(h, w, params))
     return -(-n_pairs // chunk) * levels * 2
-
-
-FLOW_KERNELS = ("warp_m", "box_solve", "gauss_solve", "poly_expansion", "pyramid")
-NO_LAUNCH = dict.fromkeys(FLOW_KERNELS, 0)
 
 
 def flow_runs(n_pairs: int, chunk: int, h: int, w: int, params, calls: int = 1) -> dict:
@@ -346,27 +338,7 @@ def flow_runs(n_pairs: int, chunk: int, h: int, w: int, params, calls: int = 1) 
 
 def add_runs(*runs: dict) -> dict:
     """The sum of launch counts by kernel."""
-    return {k: sum(r[k] for r in runs) for k in FLOW_KERNELS}
-
-
-def reset_launches() -> None:
-    """Set the launch counts of the five flow kernels to 0."""
-    from opticalflowclustering_tpu_torch.kernels import poly as kp
-    from opticalflowclustering_tpu_torch.kernels import pyramid as kpyr
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
-
-    kw.reset_launches()
-    kp.reset_launches()
-    kpyr.reset_launches()
-
-
-def launches_now() -> dict:
-    """The launch counts of the five flow kernels."""
-    from opticalflowclustering_tpu_torch.kernels import poly as kp
-    from opticalflowclustering_tpu_torch.kernels import pyramid as kpyr
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
-
-    return {**kw.LAUNCHES, **kp.LAUNCHES, **kpyr.LAUNCHES}
+    return {k: sum(r[k] for r in runs) for k in kernels.FLOW_KERNELS}
 
 
 def loop_ms(fn, iters: int) -> float:
@@ -408,7 +380,7 @@ def poly_phase(dev, stamp: str, levels, params, check_levels=()) -> dict:
         x[..., ::7, ::5] = -0.0
         x[..., 3::11, ::3] = 1e-40
         for pn, ps in POLY_CHECK:
-            got = kp.poly_expansion(x, pn, ps)
+            got = kp.poly_expansion_cuda(x, pn, ps)
             want = kp.poly_expansion_reference(x, pn, ps)
             sync(dev)
             off = int((got.view(torch.int32) != want.view(torch.int32)).sum())
@@ -420,7 +392,7 @@ def poly_phase(dev, stamp: str, levels, params, check_levels=()) -> dict:
         if i >= len(levels):
             continue
         bound, by = bound_ms(kp.kernel_bytes(b, h, w), kp.kernel_ops(n, b, h, w))
-        kern = lambda: kp.poly_expansion(x, n, sigma)  # noqa: E731
+        kern = lambda: kp.poly_expansion_cuda(x, n, sigma)  # noqa: E731
         order = ""
         if finest is None:
             plain = lambda: kp.poly_expansion_reference(x, n, sigma)  # noqa: E731
@@ -462,7 +434,7 @@ def pyramid_phase(dev, stamp: str, configs) -> dict:
         levels = [(pyramid_ksize(s), s, (h_k, w_k)) for _, h_k, w_k, s in pyramid_plan(h, w, params)]
         err = 0.0
         for ks, s, hw in levels:
-            got = kpyr.pyramid_level(x, ks, s, hw)
+            got = kpyr.pyramid_cuda(x, ks, s, hw)
             want = kpyr.pyramid_reference(x, ks, s, hw)
             sync(dev)
             off = int((got.view(torch.int32) != want.view(torch.int32)).sum())
@@ -475,7 +447,7 @@ def pyramid_phase(dev, stamp: str, configs) -> dict:
               f"bitwise equal to the plain version, max_abs_err {err}")
         for ks, s, hw in levels:
             lb, lby = bound_ms(kpyr.kernel_bytes(b, h, w, *hw), kpyr.kernel_ops(ks, b, h, w, *hw))
-            ms = loop_ms(lambda ks=ks, s=s, hw=hw: kpyr.pyramid_level(x, ks, s, hw), 50)
+            ms = loop_ms(lambda ks=ks, s=s, hw=hw: kpyr.pyramid_cuda(x, ks, s, hw), 50)
             print(f"time pyramid {name} [{b},{h},{w}] to {hw[0]}x{hw[1]} ksize {ks}: kernel {ms:.4f} ms, "
                   f"bound {lb:.4f} ms ({lby}), {lb / ms:.1%} of the bound (CUDA events) {stamp}")
 
@@ -488,7 +460,7 @@ def pyramid_phase(dev, stamp: str, configs) -> dict:
 
         bound, by = bound_ms(2 * sum(kpyr.kernel_bytes(b, h, w, *hw) for _, _, hw in levels),
                              2 * sum(kpyr.kernel_ops(ks, b, h, w, *hw) for ks, _, hw in levels))
-        kern, plain = chunk(kpyr.pyramid_level), chunk(kpyr.pyramid_reference)
+        kern, plain = chunk(kpyr.pyramid_cuda), chunk(kpyr.pyramid_reference)
         p1, k1, k2, p2 = loop_ms(plain, 3), loop_ms(kern, 20), loop_ms(kern, 20), loop_ms(plain, 3)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
         print(f"time pyramid {name} per 16-pair chunk ({len(levels)} levels x 2 images = {2 * len(levels)} "
@@ -558,10 +530,10 @@ def gauss_phase(dev, stamp: str, levels, params, frames, check_shapes=()) -> dic
 
     n, h, w = frames.shape[:3]
     cfg = PipelineConfig(emit_flow_bgr=False, flow=params)
-    reset_launches()
+    kernels.reset_launches()
     out = process_frames(frames, cfg, device=dev)
     sync(dev)
-    launches = launches_now()
+    launches = kernels.flow_launches()
     runs = flow_runs(n - 1, cfg.chunk, h, w, params)
     check(launches == runs and runs["gauss_solve"] > 0,
           f"accurate settings: expected launches {runs}, got {launches}")
@@ -617,10 +589,10 @@ def stream_phase(dev, stamp: str, frames: np.ndarray, want: dict, cfg) -> dict:
         with contextlib.closing(io_video.prefetch_chunks(iter(frames), cfg.chunk)) as chunks:
             return _stream_tables(chunks, cfg, dev)
 
-    reset_launches()
+    kernels.reset_launches()
     got = stream()
     sync(dev)
-    launches = launches_now()
+    launches = kernels.flow_launches()
     runs = flow_runs(n - 1, cfg.chunk, h, w, cfg.flow)
     check(launches == runs, f"stream: expected launches {runs}, got {launches}")
     check("flow_bgr" not in got and got["hue_table"].shape == (n - 1, cfg.grid.rows * cfg.grid.cols),
@@ -632,10 +604,10 @@ def stream_phase(dev, stamp: str, frames: np.ndarray, want: dict, cfg) -> dict:
     if have_cv2():
         demo = "demo_out/601_3.avi"
         dec = io_video.read_video_bgr(demo, DEMO_FRAMES)
-        reset_launches()
+        kernels.reset_launches()
         got_demo = process_video_stream(demo, cfg, DEMO_FRAMES, device=dev)
-        check(all(v for k, v in launches_now().items() if k != "gauss_solve"),
-              f"demo stream: a kernel was not launched: {launches_now()}")
+        check(all(v for k, v in kernels.flow_launches().items() if k != "gauss_solve"),
+              f"demo stream: a kernel was not launched: {kernels.flow_launches()}")
         check_tables(got_demo, process_frames(dec, cfg, dev), "demo stream (cv2) vs process_frames")
         print(f"stream {demo} ({dec.shape[0]} frames, cv2 decode thread): tables equal to process_frames'")
 
@@ -699,14 +671,14 @@ def queue_phase(dev, stamp: str, clips: list[np.ndarray], cfg) -> dict:
     dp, sp = mesh.shape["dp"], mesh.shape["sp"]
     n, h, w = clips[0].shape[:3]
     with tempfile.TemporaryDirectory(prefix="ofc-smoke-") as tmp, clip_files(tmp, clips) as paths:
-        reset_launches()
+        kernels.reset_launches()
         seq = vq.process_video_queue(paths, os.path.join(tmp, "seq"), cfg, device=dev)
         sync(dev)
-        l_seq = launches_now()
-        reset_launches()
+        l_seq = kernels.flow_launches()
+        kernels.reset_launches()
         dpr = vq.process_video_queue_dp(paths, os.path.join(tmp, "dp"), mesh, cfg)
         sync(dev)
-        l_dp = launches_now()
+        l_dp = kernels.flow_launches()
         stats = dict(vq.LAST_DP_STATS)
         check(all(r.ok and r.attempts == 1 for r in seq + dpr) and len(dpr) == len(paths),
               f"queue results: {[(r.video, r.ok, r.error) for r in seq + dpr]}")
@@ -758,14 +730,14 @@ def temporal_phase(dev, videos: np.ndarray, cfg) -> dict:
 
     mesh = make_mesh({"dp": 2, "sp": 2}, [dev] * 4)
     b, n, h, w = videos.shape[:4]
-    reset_launches()
+    kernels.reset_launches()
     got = sharded_hue_pipeline_videos(videos, mesh, grid=cfg.grid, params=cfg.flow, rb_swap=cfg.rb_swap)
     sync(dev)
-    l_sh = launches_now()
-    reset_launches()
+    l_sh = kernels.flow_launches()
+    kernels.reset_launches()
     want = unsharded_hue_pipeline_videos(videos, cfg.grid, cfg.flow, cfg.rb_swap, device=dev)
     sync(dev)
-    l_un = launches_now()
+    l_un = kernels.flow_launches()
     check(l_sh == flow_runs(1, 1, h, w, cfg.flow, 4), f"temporal sharded launches {l_sh}")
     check(l_un == flow_runs(1, 1, h, w, cfg.flow), f"temporal unsharded launches {l_un}")
     keys = ("hue_table", "rgb_hue_table", "centroids", "mean_magnitude")
@@ -941,11 +913,11 @@ def native_progressive_checks(dev, stamp: str, frames: np.ndarray, cfg, tmp: str
           f"vs cv2 largest gap {int(gap.max())} codes, mean {float(gap.mean()):.4f} (contract <= 5, < 1)")
 
     want = process_video_stream(paths["baseline"], cfg, None, True, device=dev)
-    reset_launches()
+    kernels.reset_launches()
     with counted_decoders({}) as pairs:
         got = process_video_stream(paths["progressive"], cfg, None, True, device=dev)
     sync(dev)
-    launches = launches_now()
+    launches = kernels.flow_launches()
     runs = flow_runs(n - 1, cfg.chunk, h, w, cfg.flow)
     check(launches == runs, f"progressive native stream: expected launches {runs}, got {launches}")
     check(pairs == {"native": n - 1, "cv2": 0},
@@ -1048,11 +1020,11 @@ def native_arith_checks(dev, stamp: str, n: int, cfg, tmp: str, host: str) -> di
     runs = flow_runs(n - 1, cfg.chunk, h, w, cfg.flow)
     launches = {}
     for kind in ("sof9", "sof10"):
-        reset_launches()
+        kernels.reset_launches()
         with counted_decoders({}) as pairs:
             got = process_video_stream(paths[kind], cfg, None, True, device=dev)
         sync(dev)
-        launches[kind] = launches_now()
+        launches[kind] = kernels.flow_launches()
         check(launches[kind] == runs, f"{kind} native stream: expected launches {runs}, got {launches[kind]}")
         check(pairs == {"native": n - 1, "cv2": 0}, f"{kind} native stream: pairs by decoder {pairs}, "
               f"expected {n - 1} native")
@@ -1142,11 +1114,11 @@ def native_decode_phase(dev, stamp: str, frames: np.ndarray, cfg) -> dict:
         check(demo == DEMO_NATIVE_SHA256, f"demo clip decodes to {demo}, not JAX's libjpeg decode {DEMO_NATIVE_SHA256}")
         check(np.array_equal(decoded[f"{w}x{h} clip"], fastio.decode_mjpeg_avi(path)), "720p clip: default threads")
 
-        reset_launches()
+        kernels.reset_launches()
         with counted_decoders({}) as pairs:
             got = process_video_stream(path, cfg, None, True, device=dev)
         sync(dev)
-        launches = launches_now()
+        launches = kernels.flow_launches()
         runs = flow_runs(n - 1, cfg.chunk, h, w, cfg.flow)
         check(launches == runs, f"native stream: expected launches {runs}, got {launches}")
         check(pairs == {"native": n - 1, "cv2": 0}, f"native stream: pairs by decoder {pairs}, expected {n - 1} native")
@@ -1198,7 +1170,7 @@ def epe_phase(dev, stamp: str, frames: np.ndarray) -> int:
     from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
 
     gates = {"exact": 1e-3, "fast": 1e-3, "fast16": 1e-2}
-    design = NO_LAUNCH
+    design = []
     clips = {f"synthetic {frames.shape[2]}x{frames.shape[1]}": frames[:5],
              "demo_out/601_3.avi 220x232": io_video.read_video_bgr("demo_out/601_3.avi", 35)[30:35]}
     for name, clip in clips.items():
@@ -1215,9 +1187,8 @@ def epe_phase(dev, stamp: str, frames: np.ndarray) -> int:
             parts.append(f"{mode} {float(epe.mean()):.3g} (worst pair {float(epe.max()):.3g}, gate {gate:g})")
         print(f"EPE vs cv2 {cv2.__version__} calcOpticalFlowFarneback, 4 pairs of {name} (max |flow| "
               f"{float(np.abs(want).max()):.1f} px), mean px: {'; '.join(parts)} {stamp}")
-        design = add_runs(design, *(flow_runs(4, 4, clip.shape[1], clip.shape[2], FarnebackParams(warp_mode=m))
-                                    for m in gates))
-    return design
+        design += [flow_runs(4, 4, clip.shape[1], clip.shape[2], FarnebackParams(warp_mode=m)) for m in gates]
+    return add_runs(*design)
 
 
 def drawgrids_phase(dev, stamp: str, clip: str, tmp: str) -> tuple[str, dict]:
@@ -1236,14 +1207,14 @@ def drawgrids_phase(dev, stamp: str, clip: str, tmp: str) -> tuple[str, dict]:
         d = os.path.join(tmp, f"drawgrids_{where}")
         os.makedirs(d)
         path = shutil.copy(clip, d)
-        reset_launches()
+        kernels.reset_launches()
         t0 = time.perf_counter()
         with contextlib.chdir(d):
             lines, _ = run_cli(drawgrids.main, ["--path", path, "--noyolo", "--nocontour", "--dump-cells",
                                                 "--device", where] + extra)
         sync(dev)
         if where == "cuda":
-            launches = launches_now()
+            launches = kernels.flow_launches()
         with open(path + "_rgb_values.csv") as f:
             runs[where] = (time.perf_counter() - t0, f.read().splitlines(), lines)
     (t, card, lines), (_, cpu, _) = runs["cuda"], runs["cpu"]
@@ -1275,14 +1246,14 @@ def celltree_phase(dev, stamp: str, clip: str, tree: str, tmp: str) -> dict:
     stub = os.path.join(d, "clip.mp4")
     with open(stub, "w") as f:
         f.write("version https://git-lfs.github.com/spec/v1\noid sha256:0\nsize 0\n")
-    reset_launches()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     with contextlib.chdir(d):
         lines, _ = run_cli(kmeangrids.main, ["-d", tree, "-c", "1", "-f", "addnew.csv", "--noyolo", "--nocontour",
                                              "--path", stub, "--device", "cuda"])
     sync(dev)
     t = time.perf_counter() - t0
-    launches = launches_now()
+    launches = kernels.flow_launches()
     name = os.path.basename(tree)
     got = np.loadtxt(os.path.join(d, "OutCSV", f"{name}.csv"), delimiter=",", skiprows=1, dtype=np.int64, ndmin=2)
     flow_bgr = process_frames(io_video.read_video_bgr(clip), PipelineConfig(), dev)["flow_bgr"]
@@ -1338,10 +1309,10 @@ def surface_phases(dev, stamp: str, frames: np.ndarray, series: np.ndarray, rgb_
     launches = {}
 
     def counted(name, fn):
-        reset_launches()
+        kernels.reset_launches()
         result = fn()
         sync(dev)
-        launches[name] = launches_now()
+        launches[name] = kernels.flow_launches()
         return result
 
     with tempfile.TemporaryDirectory(prefix="ofc-smoke-") as tmp:
@@ -1356,7 +1327,7 @@ def surface_phases(dev, stamp: str, frames: np.ndarray, series: np.ndarray, rgb_
         launches["celltree"] = celltree_phase(dev, stamp, clip, tree, tmp)
         counted("vectordistance", lambda: vectordistance_phase(series, rgb_series, tmp))
     for name in ("celltree", "vectordistance"):
-        check(launches[name] == NO_LAUNCH, f"{name} launched {launches[name]}")
+        check(not any(launches[name].values()), f"{name} launched {launches[name]}")
     return launches
 
 
@@ -1450,14 +1421,14 @@ def overlay_phase(dev, stamp: str, frames: np.ndarray, tmp: str) -> dict:
     decoded = io_video.read_video_bgr(clip)
     n, h, w = decoded.shape[:3]
     n_boxes, n_polys = overlay_inputs(d, "clip.avi", n, h, w)
-    reset_launches()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     with contextlib.chdir(d):
         lines, _ = run_cli(kmeangrids.main, ["-d", "OutImgs/clip", "-c", "1", "-f", "addnew.csv", "--path", clip,
                                              "--device", "cuda"])
     sync(dev)
     t_cli = time.perf_counter() - t0
-    launches = launches_now()
+    launches = kernels.flow_launches()
     cfg = PipelineConfig(flow=FarnebackParams(warp_mode="fast"))  # the CLI's default mode
     runs = flow_runs(n - 1, cfg.chunk, h, w, cfg.flow)
     check(launches == runs, f"overlay: expected launches {runs}, got {launches}")
@@ -1622,11 +1593,11 @@ def overlay_ops_phases(dev, stamp: str, frames: np.ndarray) -> dict:
     launches = {}
     with tempfile.TemporaryDirectory(prefix="ofc-smoke-") as tmp:
         launches["overlay"] = overlay_phase(dev, stamp, frames, tmp)
-        reset_launches()
+        kernels.reset_launches()
         ops_phase(dev, stamp, frames, tmp)
         sync(dev)
-        launches["ops"] = launches_now()
-    check(launches["ops"] == NO_LAUNCH, f"ops launched {launches['ops']}")
+        launches["ops"] = kernels.flow_launches()
+    check(not any(launches["ops"].values()), f"ops launched {launches['ops']}")
     return launches
 
 
@@ -1695,10 +1666,10 @@ def spatial_phase(dev, stamp: str, frames: np.ndarray) -> dict:
     launches = {}
 
     def counted(name, fn):
-        reset_launches()
+        kernels.reset_launches()
         out = fn()
         sync(dev)
-        launches[name] = launches_now()
+        launches[name] = kernels.flow_launches()
         return out
 
     got = counted("spatial_hue_tp2", lambda: spatial_hue_pipeline(prev, nxt, mesh2, "tp", grid, params))
@@ -1794,12 +1765,12 @@ def dryrun_phase(dev, stamp: str) -> dict:
     print(f"dryrun_multichip(4) on a mesh of {dev} x4: six passes ok, launches as designed; {t:.2f} s {stamp}")
 
     fn, (frames,) = graft_entry.entry(dev)
-    reset_launches()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     out = fn(frames)
     sync(dev)
     t = time.perf_counter() - t0
-    launches = launches_now()
+    launches = kernels.flow_launches()
     cfg = PipelineConfig(chunk=4, emit_flow_bgr=False)
     want = process_frames(frames, cfg, dev)
     check([tuple(o.shape) for o in out] == [(4, 350), (4, 350), (4,)], f"entry shapes {[o.shape for o in out]}")
@@ -1945,11 +1916,11 @@ def spatial_dryrun_extras_phases(dev, stamp: str, frames: np.ndarray) -> dict:
     launches = spatial_phase(dev, stamp, frames)
     launches.update(dryrun_phase(dev, stamp))
     with tempfile.TemporaryDirectory(prefix="ofc-smoke-") as tmp:
-        reset_launches()
+        kernels.reset_launches()
         extras_phase(dev, stamp, frames, tmp)
         sync(dev)
-        launches["extras"] = launches_now()
-    check(launches["extras"] == NO_LAUNCH, f"extras launched {launches['extras']}")
+        launches["extras"] = kernels.flow_launches()
+    check(not any(launches["extras"].values()), f"extras launched {launches['extras']}")
     return launches
 
 
@@ -1986,11 +1957,11 @@ def select_phase(dev, stamp: str, frames: np.ndarray) -> dict:
     for key, (name, clip) in clips.items():
         gray = bgr2gray(torch.from_numpy(clip))
         g = gray.to(dev)
-        reset_launches()
+        kernels.reset_launches()
         got = farneback_flow(g[:-1], g[1:], select)
         sync(dev)
         path = f"select_flow_{key}"
-        launches[path] = launches_now()
+        launches[path] = kernels.flow_launches()
         runs = flow_runs(4, 4, *g.shape[1:], select)
         check(launches[path] == runs, f"select flow {name} launched {launches[path]}, expected {runs}")
         got = got.cpu()
@@ -2007,10 +1978,10 @@ def select_phase(dev, stamp: str, frames: np.ndarray) -> dict:
               f"{cv2.__version__} {epe(got, want):.3g} px {stamp}")
 
     cfgs = {m: PipelineConfig(emit_flow_bgr=False, flow=FarnebackParams(warp_mode=m)) for m in ("select", "fast")}
-    reset_launches()
+    kernels.reset_launches()
     out = process_frames(frames, cfgs["select"], device=dev)  # also the warm-up
     sync(dev)
-    launches["select_process_frames"] = launches_now()
+    launches["select_process_frames"] = kernels.flow_launches()
     n_pairs = frames.shape[0] - 1
     runs = flow_runs(n_pairs, cfgs["select"].chunk, *frames.shape[1:3], select)
     check(launches["select_process_frames"] == runs,
@@ -2352,7 +2323,7 @@ def fused_train_phase(dev, stamp: str, videos: np.ndarray) -> dict:
         make_fused_train_step(mesh, warm, adamw(warm.parameters(), 1e-3), grid, flow)(videos, labels)
         model = init_classifier(torch.Generator().manual_seed(0), grid.rows * grid.cols, device=dev)
         step = make_fused_train_step(mesh, model, adamw(model.parameters(), 1e-3), grid, flow)
-        reset_launches()
+        kernels.reset_launches()
         losses, times = [], []
         for _ in range(steps):
             sync(dev)
@@ -2361,7 +2332,7 @@ def fused_train_phase(dev, stamp: str, videos: np.ndarray) -> dict:
             sync(dev)
             times.append(time.perf_counter() - t0)
         blocks = shape["dp"] * shape["sp"]
-        launches = launches_now()
+        launches = kernels.flow_launches()
         want = flow_runs(1, 1, h, w, flow, blocks * steps)
         check(launches == want, f"fused train {name}: expected launches {want}, got {launches}")
         runs[name] = (model, losses, times, launches, want)
@@ -2392,10 +2363,10 @@ def model_phases(dev, stamp: str, flow_bgr: np.ndarray, series: np.ndarray, vide
     launches = {}
 
     def counted(name, fn):
-        reset_launches()
+        kernels.reset_launches()
         fn()
         sync(dev)
-        launches[name] = launches_now()
+        launches[name] = kernels.flow_launches()
 
     check(have_cv2(), "the model CLIs read and write images with cv2, which is not importable")
     with tempfile.TemporaryDirectory(prefix="ofc-smoke-") as tmp:
@@ -2543,10 +2514,10 @@ def main() -> int:
     outs = {}
     for mode in ("fast", "fast16"):
         cfg = PipelineConfig(flow=FarnebackParams(warp_mode=mode))
-        reset_launches()
+        kernels.reset_launches()
         out = process_frames(frames, cfg, device="cuda")
         torch.cuda.synchronize()
-        launches[mode] = launches_now()
+        launches[mode] = kernels.flow_launches()
         print(f"slice {mode}: launches {launches[mode]}")
         runs = flow_runs(N - 1, cfg.chunk, H, W, cfg.flow)
         check(launches[mode] == runs and runs["warp_m"] == 36,
@@ -2585,11 +2556,11 @@ def main() -> int:
     # Pure-noise 720p frames: finite, and each kernel within tolerance of its
     # plain version on the level-0 expansion and the flow the pipeline found.
     nz = noise_frames(9, H, W)
-    reset_launches()
+    kernels.reset_launches()
     out_n = process_frames(nz, PipelineConfig(emit_flow_bgr=False, flow=FarnebackParams(warp_mode="fast")), "cuda")
     check(np.isfinite(out_n["mean_magnitude"]).all(), "noise: non-finite mean magnitude")
-    check(all(v for k, v in launches_now().items() if k != "gauss_solve"),
-          f"noise: a kernel was not launched: {launches_now()}")
+    check(all(v for k, v in kernels.flow_launches().items() if k != "gauss_solve"),
+          f"noise: a kernel was not launched: {kernels.flow_launches()}")
     gn = bgr2gray(torch.from_numpy(nz).to(dev)).float()
     flow_n = farneback_flow(gn[:-1], gn[1:], FarnebackParams(warp_mode="fast"))
     check(bool(torch.isfinite(flow_n).all()), "noise: non-finite flow")
@@ -2719,7 +2690,7 @@ def main() -> int:
 
     # Phase 7: results.
     src = "opticalflowclustering_tpu_torch/kernels/csrc/"
-    kernels = [
+    results = [
         {"name": "warp_m", "route": "cuda", "source": src + "warp_m.cu",
          "replaces": "opticalflowclustering_tpu/kernels/warp.py:177",
          "launches": launches["fast"]["warp_m"], "max_abs_err": err["warp_m"],
@@ -2745,7 +2716,7 @@ def main() -> int:
                               **{k: v["pyramid"] for k, v in path_launches.items()}}},
     ] + probe_kernels
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -14,18 +14,17 @@ float32 and the flow travels between steps as two planes fx, fy [B, H, W],
 the layout the CUDA kernels take. `farneback_flow` returns the reference's
 channel-last [..., H, W, 2].
 
-On a CUDA tensor each pyramid level's blur and downsample is one launch
-of the `kernels.pyramid` kernel where the level's sides divide the frame's
-(`pyramid_kernel_takes`), and the polynomial expansion one launch of the
-`kernels.poly` kernel (n ≤ 8), in every warp mode; a CPU tensor runs their
-plain versions. For warp modes 'fast' and 'fast16' with winsize ≤ 17, the
+Each pyramid level's blur and downsample goes through the entry
+`kernels.pyramid.pyramid` and the polynomial expansion through
+`kernels.poly.poly_expansion`, in every warp mode. For warp modes 'fast'
+and 'fast16' with a window the solve's kernel takes (`uses_kernels`), the
 warp+M and solve steps go through `kernels.warp.warp_m` and, by the
-window, `box_solve` or `gauss_solve` (OpenCV's OPTFLOW_FARNEBACK_GAUSSIAN,
-2 ≤ winsize): the hand-written CUDA kernels for a CUDA tensor, their plain
-versions for a CPU tensor. Every other configuration ('exact', 'select',
-wider windows) runs the plain PyTorch steps on the caller's device. Each
-Gaussian solve, kernel or plain, runs in an `ofc.flow.gauss` span inside
-`ofc.flow.solve`.
+window, `box_solve` or `gauss_solve` (OpenCV's OPTFLOW_FARNEBACK_GAUSSIAN).
+Each entry launches its hand-written CUDA kernel on the card where the
+kernel takes the input, and runs its plain version everywhere else. Every
+other configuration ('exact', 'select', wider windows) runs the plain
+PyTorch steps on the caller's device. Each Gaussian solve, kernel or plain,
+runs in an `ofc.flow.gauss` span inside `ofc.flow.solve`.
 """
 
 from __future__ import annotations
@@ -36,11 +35,10 @@ import functools
 import numpy as np
 import torch
 
-from opticalflowclustering_tpu_torch.ops.filters import (
-    box_sum,
-    gaussian_blur,
-    sep_filter_axis,
-)
+from opticalflowclustering_tpu_torch.kernels import poly as kp
+from opticalflowclustering_tpu_torch.kernels import pyramid as kpyr
+from opticalflowclustering_tpu_torch.kernels import warp as kw
+from opticalflowclustering_tpu_torch.ops.filters import box_sum, sep_filter_axis
 from opticalflowclustering_tpu_torch.ops.resize import resize_linear
 from opticalflowclustering_tpu_torch.runtime import f32
 from opticalflowclustering_tpu_torch.utils.profiling import span
@@ -50,12 +48,6 @@ _BORDER = 5
 # OpenCV FarnebackUpdateMatrices edge taper.
 _BORDER_SCALE = np.array([0.14, 0.14, 0.4472, 0.4472, 0.4472], dtype=np.float32)
 _WARP_MODES = ("exact", "fast", "fast16", "select")
-# The box- and Gaussian-solve kernels stage a halo of at most 8 rows/columns.
-MAX_KERNEL_WINSIZE = 17
-# The poly-expansion kernel unrolls n up to 8 (OpenCV's poly_n is 5 or 7).
-MAX_KERNEL_POLY_N = 8
-# The pyramid kernel's taps: ksize 79, pyr_scale 0.5 through level 5.
-MAX_KERNEL_PYRAMID_RADIUS = 39
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,31 +139,6 @@ def pyramid_ksize(sigma: float) -> int:
     return max(_cvround(sigma * 5) | 1, 3)
 
 
-def pyramid_kernel_takes(
-    img: torch.Tensor, ksize: int, hw: tuple[int, int], level_hw: tuple[int, int]
-) -> bool:
-    """Whether `farneback_flow` builds the level of `img` (H×W → h_k×w_k,
-    blurred by ksize taps) with the pyramid kernel: a CUDA tensor, each
-    side's ratio a whole number, the radius at most the kernel's and below
-    each side."""
-    (h, w), (h_k, w_k) = hw, level_hw
-    r = ksize // 2
-    return (
-        img.device.type == "cuda"
-        and 0 < h_k <= h
-        and 0 < w_k <= w
-        and h % h_k == 0
-        and w % w_k == 0
-        and r <= MAX_KERNEL_PYRAMID_RADIUS
-        and r < min(h, w)
-    )
-
-
-def poly_kernel_takes(img: torch.Tensor, n: int) -> bool:
-    """Whether `poly_expansion` runs the CUDA kernel for this image and n."""
-    return img.device.type == "cuda" and n <= MAX_KERNEL_POLY_N
-
-
 def poly_expansion(
     img: torch.Tensor, n: int, sigma: float, channel_first: bool = False
 ) -> torch.Tensor:
@@ -181,19 +148,14 @@ def poly_expansion(
     Channels (OpenCV layout): 0: y-linear, 1: x-linear, 2: y², 3: x², 4: xy.
     A replicate-padded vertical pass (Σg·I, Σxg·I, Σxxg·I), then a
     horizontal pass combining them through the inverse Gram coefficients.
-    On the card (n ≤ `MAX_KERNEL_POLY_N`) one launch of the
-    `kernels.poly` kernel, bit for bit the plain version, which runs
-    everywhere else; channel-last output is then a view of the kernel's
-    channel-first planes.
+    One call of the entry `kernels.poly.poly_expansion` on the images as
+    float32 [B, H, W] (the kernel on the card, bit for bit the plain
+    version); channel-last output is a view of its channel-first planes.
     """
-    if poly_kernel_takes(img, n):
-        from opticalflowclustering_tpu_torch.kernels import poly as kp
-
-        h, w = img.shape[-2], img.shape[-1]
-        x = img.to(torch.float32).reshape(-1, h, w).contiguous()
-        out = kp.poly_expansion(x, n, sigma).reshape(img.shape[:-2] + (5, h, w))
-        return out if channel_first else out.movedim(-3, -1)
-    return _poly_expansion_plain(img, n, sigma, channel_first)
+    h, w = img.shape[-2], img.shape[-1]
+    x = img.to(torch.float32).reshape(-1, h, w)
+    out = kp.poly_expansion(x, n, sigma).reshape(img.shape[:-2] + (5, h, w))
+    return out if channel_first else out.movedim(-3, -1)
 
 
 def _poly_expansion_plain(
@@ -419,14 +381,9 @@ def update_matrices(
     |y1−y| ≤ warp_radius−1 or |x1−x| ≤ 126 to the out-of-bounds fallback
     (the reference's `update_matrices`, `flow/farneback.py:377-390`)."""
     if warp_mode in ("fast", "fast16"):
-        from opticalflowclustering_tpu_torch.kernels.warp import (
-            quantize_r1_fast16,
-            warp_m_reference,
-        )
-
         if warp_mode == "fast16":
-            r1 = quantize_r1_fast16(r1)
-        return warp_m_reference(r0, r1, dx, dy)
+            r1 = kw.quantize_r1_fast16(r1)
+        return kw.warp_m_reference(r0, r1, dx, dy)
     if warp_mode == "select":
         return _update_matrices(
             r0, r1, dx, dy, reach=(warp_radius - 1, 126), select_radius=warp_radius
@@ -489,26 +446,15 @@ def pyramid_plan(
     return plan
 
 
-def box_solve_takes(winsize: int) -> bool:
-    """Whether the box_solve kernel takes this box window (the row-sharded
-    flow, `parallel/spatial.py`, gates its solve on it too)."""
-    return winsize <= MAX_KERNEL_WINSIZE
-
-
-def gauss_solve_takes(winsize: int) -> bool:
-    """Whether the gauss_solve kernel takes this Gaussian window: a radius
-    winsize // 2 of 1 to 8 (at winsize 1 the plain window's sigma is 0)."""
-    return 2 <= winsize <= MAX_KERNEL_WINSIZE
-
-
 def uses_kernels(params: FarnebackParams) -> bool:
-    """Whether `farneback_flow` runs its inner loop through the kernel
-    wrappers (the reference's `fused_tpu` gate, `flow/farneback.py:480-485`,
-    without the backend test, and open to the Gaussian window, which the
-    reference leaves plain: the wrappers pick kernel or plain version by
-    the tensors' device)."""
-    takes = gauss_solve_takes if params.gaussian_win else box_solve_takes
-    return params.warp_mode in ("fast", "fast16") and takes(params.winsize)
+    """Whether `farneback_flow` runs its inner loop through the entries
+    `kernels.warp.warp_m` and the window's solve (the reference's
+    `fused_tpu` gate, `flow/farneback.py:480-485`, without the backend test,
+    and open to the Gaussian window, which the reference leaves plain): the
+    warp modes whose reach masks are the warp_m kernel's, with a window the
+    solve's kernel takes. The rule and the kernels' limits live beside the
+    entries, in `kernels.warp.flow_takes`."""
+    return kw.flow_takes(params)
 
 
 def farneback_flow(
@@ -528,24 +474,33 @@ def farneback_flow(
     next_f = next_img.to(torch.float32).reshape(-1, h, w)
     fused = uses_kernels(params)
     if fused:
-        from opticalflowclustering_tpu_torch.kernels import warp as kw
+        window = kw.gauss_solve if params.gaussian_win else kw.box_solve
+    else:
+        window = functools.partial(_update_flow, gaussian=params.gaussian_win)
 
-    def window_solve(m):
-        """(fx, fy) of M over the window: a kernel wrapper where `fused`."""
+    def solve(m):
+        """(fx, fy) of M over the window."""
         if not params.gaussian_win:
-            return kw.box_solve(m, params.winsize) if fused else _update_flow(m, params.winsize, False)
+            return window(m, params.winsize)
         with span("ofc.flow.gauss"):
-            return kw.gauss_solve(m, params.winsize) if fused else _update_flow(m, params.winsize, True)
+            return window(m, params.winsize)
+
+    def level_warp(r0, r1, k):
+        """m_of(fx, fy): M of level k's coefficients from a flow."""
+        if fused:
+            # R1's bf16 rounding is iteration-invariant: once per level.
+            if params.warp_mode == "fast16":
+                r1 = kw.quantize_r1_fast16(r1)
+            return functools.partial(kw.warp_m, r0, r1)
+        # Level-k flow is in level-k pixels (≈ motion / 2^k): the select
+        # warp's radius halves per level, floor 8 (the reference's
+        # `flow/farneback.py:536-548`).
+        radius_k = max(8, params.warp_radius >> k)
+        return functools.partial(update_matrices, r0, r1, warp_mode=params.warp_mode, warp_radius=radius_k)
 
     def level_poly(img, h_k, w_k, sigma):
-        smooth_sz = pyramid_ksize(sigma)
         with span("ofc.flow.pyramid"):
-            if pyramid_kernel_takes(img, smooth_sz, (h, w), (h_k, w_k)):
-                from opticalflowclustering_tpu_torch.kernels import pyramid as kpyr
-
-                level = kpyr.pyramid_level(img.contiguous(), smooth_sz, sigma, (h_k, w_k))
-            else:
-                level = resize_linear(gaussian_blur(img, smooth_sz, sigma, border="reflect101"), (h_k, w_k))
+            level = kpyr.pyramid(img, pyramid_ksize(sigma), sigma, (h_k, w_k))
         with span("ofc.flow.poly"):
             return poly_expansion(level, params.poly_n, params.poly_sigma, channel_first=True)
 
@@ -564,25 +519,12 @@ def farneback_flow(
                 up = up * f32(1.0 / params.pyr_scale)
                 fx, fy = up[:, 0].contiguous(), up[:, 1].contiguous()
 
-            if fused:
-                # R1's bf16 rounding is iteration-invariant: once per level.
-                if params.warp_mode == "fast16":
-                    r1 = kw.quantize_r1_fast16(r1)
-                m = kw.warp_m(r0, r1, fx, fy)
-                for i in range(params.iterations):
-                    fx, fy = window_solve(m)
-                    if i < params.iterations - 1:
-                        m = kw.warp_m(r0, r1, fx, fy)
-            else:
-                # Level-k flow is in level-k pixels (≈ motion / 2^k): the select
-                # warp's radius halves per level, floor 8 (the reference's
-                # `flow/farneback.py:536-548`).
-                radius_k = max(8, params.warp_radius >> k)
-                m = update_matrices(r0, r1, fx, fy, params.warp_mode, radius_k)
-                for i in range(params.iterations):
-                    fx, fy = window_solve(m)
-                    if i < params.iterations - 1:
-                        m = update_matrices(r0, r1, fx, fy, params.warp_mode, radius_k)
+            m_of = level_warp(r0, r1, k)
+            m = m_of(fx, fy)
+            for i in range(params.iterations):
+                fx, fy = solve(m)
+                if i < params.iterations - 1:
+                    m = m_of(fx, fy)
     return torch.stack([fx, fy], dim=-1).reshape(lead + (h, w, 2))
 
 

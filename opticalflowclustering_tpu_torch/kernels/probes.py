@@ -25,8 +25,8 @@ the slope between two trip counts and `dynslice` by replaying a CUDA graph
 of many launches. `loop_probe` and `dynslice` are the wrappers: for a CPU
 tensor they run the plain versions (`loop_probe_reference`,
 `dynslice_reference`); for a CUDA tensor they launch the kernel or raise.
-`LAUNCHES` counts kernel launches (a call captured into a CUDA graph counts
-once, when it is captured). The kernel equals its plain version bit for bit
+`kernels.LAUNCHES` counts their launches (a call captured into a CUDA graph
+counts once, when it is captured). The kernel equals its plain version bit for bit
 (see `csrc/probes.cu` for the order of operations and its stage groups of
 UNROLL iterations).
 
@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from opticalflowclustering_tpu_torch import kernels
 from opticalflowclustering_tpu_torch.kernels.build import build
 from opticalflowclustering_tpu_torch.runtime import f32
 from opticalflowclustering_tpu_torch.utils.profiling import F32_OPS_PER_S
@@ -70,14 +71,6 @@ STAGED_ROWS = {"mul": 0, "where": 0, "take": 1, "take_bf16": 1, "two_takes": 2,
 SMS = 132  # streaming multiprocessors of one H100 SXM
 WARP = 32
 BANKS = 32  # shared-memory banks of 4 bytes; one 128-byte wavefront per clock per SM
-
-# Kernel launches per wrapper; `reset_launches` sets them to 0.
-LAUNCHES = {"loop_probe": 0, "dynslice": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def loop_probe_cost(body: str, rows: int, n: int) -> tuple[int, int]:
@@ -230,7 +223,7 @@ def loop_probe_cuda(
     ext = build()
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     ext.loop_probe(BODIES.index(body), x, idx, out, n)
-    LAUNCHES["loop_probe"] += 1
+    kernels.LAUNCHES["loop_probe"] += 1
     return out
 
 
@@ -251,7 +244,7 @@ def dynslice_cuda(x: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
     ext = build()
     out = torch.empty((WINDOW, LANES), dtype=torch.float32, device=x.device)
     ext.dynslice(x, off, out)
-    LAUNCHES["dynslice"] += 1
+    kernels.LAUNCHES["dynslice"] += 1
     return out
 
 

@@ -6,15 +6,14 @@ place of the plain stage's full-frame operators, one per tap pair and axis
 (10 to 124 a level and image), and of its two stream-synchronising index
 uploads. float32 [B, H, W] → [B, Ho, Wo], bit for bit the plain version
 (`pyramid_reference`: `resize_linear(gaussian_blur(x, ksize, sigma,
-"reflect101"), (Ho, Wo))`), which `flow.farneback.farneback_flow` runs for
-a CPU tensor and for a level the kernel does not take
-(`pyramid_kernel_takes`).
+"reflect101"), (Ho, Wo))`).
 
-`pyramid_level` launches the kernel on a contiguous float32 CUDA tensor
-whose sides the level's divide, with a radius ksize // 2 of at most
-`MAX_KERNEL_PYRAMID_RADIUS` and below each side, and raises on anything
-else. `LAUNCHES` counts its launches, apart from the other kernels', so a
-run can show that its pyramid went through it.
+`pyramid` is the entry `flow.farneback.farneback_flow` calls for each
+level: on the card, for a level the kernel takes (`pyramid_takes`: each
+side's ratio a whole number, a radius ksize // 2 of at most
+`MAX_KERNEL_PYRAMID_RADIUS` and below each side), it launches the kernel
+(`pyramid_cuda`, counted in `kernels.LAUNCHES`), and everywhere else it
+runs the plain version. The launcher raises on anything it does not take.
 """
 
 from __future__ import annotations
@@ -24,18 +23,13 @@ import functools
 import numpy as np
 import torch
 
-from opticalflowclustering_tpu_torch.flow.farneback import MAX_KERNEL_PYRAMID_RADIUS
+from opticalflowclustering_tpu_torch import kernels
 from opticalflowclustering_tpu_torch.kernels.build import build
 from opticalflowclustering_tpu_torch.ops.filters import gaussian_blur, gaussian_kernel
 from opticalflowclustering_tpu_torch.ops.resize import resize_linear
 
-# Kernel launches; `reset_launches` sets them to 0.
-LAUNCHES = {"pyramid": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+# The kernel's taps: ksize 79, pyr_scale 0.5 through level 5.
+MAX_KERNEL_PYRAMID_RADIUS = 39
 
 
 def kernel_bytes(b: int, h: int, w: int, ho: int, wo: int) -> int:
@@ -77,7 +71,7 @@ def pyramid_reference(
     return resize_linear(gaussian_blur(x, ksize, sigma, border="reflect101"), level_hw)
 
 
-def pyramid_level(
+def pyramid_cuda(
     x: torch.Tensor, ksize: int, sigma: float, level_hw: tuple[int, int]
 ) -> torch.Tensor:
     """Launch the kernel: x a contiguous float32 CUDA [B, H, W] → [B, Ho, Wo]."""
@@ -94,12 +88,36 @@ def pyramid_level(
     r = ksize // 2
     if ksize % 2 == 0 or r > MAX_KERNEL_PYRAMID_RADIUS or r >= min(h, w):
         raise ValueError(
-            f"pyramid_level needs an odd ksize whose radius is at most {MAX_KERNEL_PYRAMID_RADIUS} "
+            f"pyramid needs an odd ksize whose radius is at most {MAX_KERNEL_PYRAMID_RADIUS} "
             f"and below each side, got ksize {ksize} on {(h, w)}"
         )
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     out = torch.empty((b, ho, wo), dtype=torch.float32, device=x.device)
     build().pyramid_level(x, out, r, _taps(ksize, sigma))
-    LAUNCHES["pyramid"] += 1
+    kernels.LAUNCHES["pyramid"] += 1
     return out
+
+
+def pyramid_takes(ksize: int, hw: tuple[int, int], level_hw: tuple[int, int]) -> bool:
+    """Whether the kernel builds the level of an H×W image (to h_k×w_k,
+    blurred by ksize taps): each side's ratio a whole number, the radius at
+    most the kernel's and below each side."""
+    (h, w), (h_k, w_k) = hw, level_hw
+    r = ksize // 2
+    return (
+        0 < h_k <= h
+        and 0 < w_k <= w
+        and h % h_k == 0
+        and w % w_k == 0
+        and r <= MAX_KERNEL_PYRAMID_RADIUS
+        and r < min(h, w)
+    )
+
+
+def pyramid(x: torch.Tensor, ksize: int, sigma: float, level_hw: tuple[int, int]) -> torch.Tensor:
+    """[B, H, W] float32 → the level [B, Ho, Wo]: the kernel on the card for
+    a level it takes, else the plain version."""
+    if kernels.on_card(x) and pyramid_takes(ksize, tuple(x.shape[-2:]), level_hw):
+        return pyramid_cuda(x.contiguous(), ksize, sigma, level_hw)
+    return pyramid_reference(x, ksize, sigma, level_hw)

@@ -26,11 +26,12 @@ R1's channels 0–3 through bf16 once per pyramid level (`quantize_r1_fast16`,
 a plain step on the device) and then runs the same warp_m kernel, which is
 the value the reference's packed kernel unpacks.
 
-`warp_m`, `box_solve` and `gauss_solve` are the wrappers the flow calls:
-for a CPU tensor they run the plain versions (`warp_m_reference`,
-`box_solve_reference`, `gauss_solve_reference`);
-for a CUDA tensor they launch the kernel or raise. `LAUNCHES` counts kernel
-launches, so a run can show that its main path went through the kernels.
+`warp_m`, `box_solve` and `gauss_solve` are the entries the flow calls
+where `flow_takes` holds for its parameters: on the card, for a window the
+solve's kernel takes (`box_solve_takes`, `gauss_solve_takes`), they launch
+the kernel (`*_cuda`); everywhere else they run the plain versions
+(`*_reference`), which import the flow's stage functions where they run,
+since `flow.farneback` imports this module.
 
 The kernels are built at first use by `kernels.build.build`, one build for
 all of the port's kernels, compiled with `--fmad=false`: without
@@ -46,32 +47,20 @@ import functools
 import numpy as np
 import torch
 
-from opticalflowclustering_tpu_torch.flow.farneback import (
-    MAX_KERNEL_WINSIZE,
-    _update_flow,
-    _update_matrices,
-    gauss_solve_takes,
-    gauss_window,
-)
+from opticalflowclustering_tpu_torch import kernels
 from opticalflowclustering_tpu_torch.kernels.build import build
 from opticalflowclustering_tpu_torch.runtime import f32
 
 _REACH_Y = 119  # vertical reach of the reference's candidate window
 _REACH_X = 127  # horizontal reach of the reference's 3-tile lane window
-
-# Kernel launches per wrapper; `reset_launches` sets them to 0.
-LAUNCHES = {"warp_m": 0, "box_solve": 0, "gauss_solve": 0}
+# The box- and Gaussian-solve kernels stage a halo of at most 8 rows/columns.
+MAX_KERNEL_WINSIZE = 17
 
 # Bytes per pixel each kernel must move, every input read once and every
 # output written once, in float32: warp_m reads R0 (5 planes), R1 (5) and
 # the flow (2) and writes M (5); box_solve and gauss_solve read M (5) and
 # write fx, fy (2).
 BYTES_PER_PIXEL = {"warp_m": 4 * (5 + 5 + 2 + 5), "box_solve": 4 * (5 + 2), "gauss_solve": 4 * (5 + 2)}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def kernel_bytes(name: str, b: int, h: int, w: int) -> int:
@@ -107,6 +96,8 @@ def warp_m_reference(
     """Plain version of the warp_m kernel: the reference's
     `update_matrices_gather` (kernels/warp.py:713), channel-first.
     r0, r1: [B, 5, H, W]; fx, fy: [B, H, W] → M [B, 5, H, W]."""
+    from opticalflowclustering_tpu_torch.flow.farneback import _update_matrices
+
     return _update_matrices(r0, r1, fx, fy, reach=(_REACH_Y, _REACH_X))
 
 
@@ -115,6 +106,8 @@ def box_solve_reference(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the box_solve kernel: `_update_flow(m, winsize,
     gaussian=False)`. m: [B, 5, H, W] → (fx, fy) [B, H, W]."""
+    from opticalflowclustering_tpu_torch.flow.farneback import _update_flow
+
     return _update_flow(m, winsize, gaussian=False)
 
 
@@ -123,6 +116,8 @@ def gauss_solve_reference(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the gauss_solve kernel: `_update_flow(m, winsize,
     gaussian=True)`. m: [B, 5, H, W] → (fx, fy) [B, H, W]."""
+    from opticalflowclustering_tpu_torch.flow.farneback import _update_flow
+
     return _update_flow(m, winsize, gaussian=True)
 
 
@@ -131,6 +126,8 @@ def gauss_taps(winsize: int) -> torch.Tensor:
     """The gauss_solve kernel's weights, a CPU float32 vector of
     winsize // 2 + 1: the centre's, then one per distance, the taps the
     plain version reads (`kern[r - d]`), rounded as it rounds them."""
+    from opticalflowclustering_tpu_torch.flow.farneback import gauss_window
+
     kern = gauss_window(winsize)
     return torch.from_numpy(np.ascontiguousarray(kern[winsize // 2 :: -1], dtype=np.float32))
 
@@ -165,7 +162,7 @@ def warp_m_cuda(
     ext = build()
     m = torch.empty_like(r0)
     ext.warp_m(r0, r1, fx, fy, m)
-    LAUNCHES["warp_m"] += 1
+    kernels.LAUNCHES["warp_m"] += 1
     return m
 
 
@@ -186,7 +183,7 @@ def box_solve_cuda(
     fx = torch.empty((b, h, w), dtype=torch.float32, device=m.device)
     fy = torch.empty_like(fx)
     ext.box_solve(m, fx, fy, winsize // 2, f32(1.0 / (winsize * winsize)))
-    LAUNCHES["box_solve"] += 1
+    kernels.LAUNCHES["box_solve"] += 1
     return fx, fy
 
 
@@ -205,29 +202,51 @@ def gauss_solve_cuda(
     fx = torch.empty((b, h, w), dtype=torch.float32, device=m.device)
     fy = torch.empty_like(fx)
     ext.gauss_solve(m, fx, fy, winsize // 2, gauss_taps(winsize))
-    LAUNCHES["gauss_solve"] += 1
+    kernels.LAUNCHES["gauss_solve"] += 1
     return fx, fy
+
+
+def box_solve_takes(winsize: int) -> bool:
+    """Whether the box_solve kernel takes this box window."""
+    return winsize <= MAX_KERNEL_WINSIZE
+
+
+def gauss_solve_takes(winsize: int) -> bool:
+    """Whether the gauss_solve kernel takes this Gaussian window: a radius
+    winsize // 2 of 1 to 8 (at winsize 1 the plain window's sigma is 0)."""
+    return 2 <= winsize <= MAX_KERNEL_WINSIZE
+
+
+def flow_takes(params) -> bool:
+    """Whether a flow of FarnebackParams `params` runs its inner loop
+    through `warp_m` and the window's solve: a warp mode whose reach masks
+    are the warp_m kernel's ('fast', 'fast16'), with a window the solve's
+    kernel takes. Elsewhere the flow's warp and solve stay plain on every
+    device, and no warp_m or solve kernel is launched."""
+    takes = gauss_solve_takes if params.gaussian_win else box_solve_takes
+    return params.warp_mode in ("fast", "fast16") and takes(params.winsize)
 
 
 def warp_m(
     r0: torch.Tensor, r1: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor
 ) -> torch.Tensor:
-    """M [B, 5, H, W]: the plain version for CPU tensors, else the kernel."""
-    if r0.device.type == "cpu":
-        return warp_m_reference(r0, r1, fx, fy)
-    return warp_m_cuda(r0, r1, fx, fy)
+    """M [B, 5, H, W]: the kernel on the card, else the plain version."""
+    if kernels.on_card(r0):
+        return warp_m_cuda(r0, r1, fx, fy)
+    return warp_m_reference(r0, r1, fx, fy)
 
 
 def box_solve(m: torch.Tensor, winsize: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(fx, fy) [B, H, W]: the plain version for a CPU tensor, else the kernel."""
-    if m.device.type == "cpu":
-        return box_solve_reference(m, winsize)
-    return box_solve_cuda(m, winsize)
+    """(fx, fy) [B, H, W]: the kernel on the card for a window it takes,
+    else the plain version."""
+    if kernels.on_card(m) and box_solve_takes(winsize):
+        return box_solve_cuda(m, winsize)
+    return box_solve_reference(m, winsize)
 
 
 def gauss_solve(m: torch.Tensor, winsize: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(fx, fy) [B, H, W] over the Gaussian window: the plain version for a
-    CPU tensor, else the kernel."""
-    if m.device.type == "cpu":
-        return gauss_solve_reference(m, winsize)
-    return gauss_solve_cuda(m, winsize)
+    """(fx, fy) [B, H, W] over the Gaussian window: the kernel on the card
+    for a window it takes, else the plain version."""
+    if kernels.on_card(m) and gauss_solve_takes(winsize):
+        return gauss_solve_cuda(m, winsize)
+    return gauss_solve_reference(m, winsize)

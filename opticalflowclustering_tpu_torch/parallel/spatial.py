@@ -56,12 +56,10 @@ from opticalflowclustering_tpu_torch.features.grid import GridParams, grid_mean_
 from opticalflowclustering_tpu_torch.flow.farneback import (
     FarnebackParams,
     _border_ramp,
-    _cvround,
     _m_build,
-    _update_flow,
     _warp_gather,
-    box_solve_takes,
     poly_expansion,
+    pyramid_ksize,
     pyramid_plan,
 )
 from opticalflowclustering_tpu_torch.flow.render import render_flow_hsv_bgr_given_range
@@ -174,12 +172,8 @@ def _solve_ext(m: torch.Tensor, winsize: int) -> torch.Tensor:
     """The windowed 2×2 solve of a block's M region [B, 5, Hm, W] → flow
     [B, 2, Hm, W], valid on the centre rows: the function of the JAX
     package's `_solve_ext` (a replicate-border box sum over winsize², then
-    the regularised solve). `kernels.warp.box_solve` for the windows its
-    kernel takes; wider ones run the plain step, as `farneback_flow` does."""
-    if box_solve_takes(winsize):
-        fx, fy = kw.box_solve(m.contiguous(), winsize)
-    else:
-        fx, fy = _update_flow(m, winsize, gaussian=False)
+    the regularised solve), through the entry `kernels.warp.box_solve`."""
+    fx, fy = kw.box_solve(m.contiguous(), winsize)
     return torch.stack([fx, fy], dim=1)
 
 
@@ -216,7 +210,7 @@ def _level_margins(params: FarnebackParams) -> dict[int, tuple[int, int, int]]:
         marg = mhalf + params.poly_n // 2 + reach + 1  # r1 rows the warp reads
         scale = params.pyr_scale**k
         sigma = (1.0 / scale - 1.0) * 0.5
-        smooth_sz = max(_cvround(sigma * 5) | 1, 3)
+        smooth_sz = pyramid_ksize(sigma)
         rb = smooth_sz // 2
         step = 2**k
         full = step * marg + rb + step // 2
@@ -276,7 +270,7 @@ def _shard_flow(
     for k, h_k, w_k, sigma in plan:
         step = 2**k
         _, marg, full = margins[k]
-        smooth_sz = max(_cvround(sigma * 5) | 1, 3)
+        smooth_sz = pyramid_ksize(sigma)
         hk_loc = h_loc // step
 
         # 1. full-resolution halo, blur, downsample, polynomial expansion

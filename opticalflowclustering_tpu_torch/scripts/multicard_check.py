@@ -68,7 +68,7 @@ def check_artifacts(paths, out_dir: str, seq_dir: str) -> None:
 def worker(device: str, rank: int, port: str, clips_dir: str, out_dir: str, seq_dir: str) -> None:
     """One of the two processes of check 3."""
     from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.kernels import flow_launches, reset_launches
     from opticalflowclustering_tpu_torch.parallel import multihost
     from opticalflowclustering_tpu_torch.pipeline import queue as q
     from opticalflowclustering_tpu_torch.pipeline.bounce import PipelineConfig
@@ -83,7 +83,7 @@ def worker(device: str, rank: int, port: str, clips_dir: str, out_dir: str, seq_
     check(mesh.shape == {"dp": 2, "sp": 2} and mesh.owners.tolist() == [[0, 0], [1, 1]], f"{mesh}")
     paths = sorted(os.path.join(clips_dir, f) for f in os.listdir(clips_dir))
     cfg = PipelineConfig(emit_flow_bgr=False, flow=FarnebackParams(warp_mode="fast"))
-    kw.reset_launches()
+    reset_launches()
     res = q.process_video_queue_dp(paths, out_dir, mesh, cfg)
     mine = multihost.host_shard(paths)
     check(sorted(r.video for r in res) == mine and all(r.ok for r in res), f"results {res}")
@@ -92,7 +92,7 @@ def worker(device: str, rank: int, port: str, clips_dir: str, out_dir: str, seq_
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     print(f"rank {rank}: {len(mine)} videos on its own row, artifacts = sequential queue's; "
-          f"launches {kw.LAUNCHES}, stats {q.LAST_DP_STATS}", flush=True)
+          f"launches {flow_launches()}, stats {q.LAST_DP_STATS}", flush=True)
 
 
 def run_processes(device: str, clips_dir: str, out_dir: str, seq_dir: str) -> None:
@@ -129,7 +129,7 @@ def spatial_check(devs, h: int, w: int) -> None:
     from opticalflowclustering_tpu_torch.features.grid import GridParams, grid_mean_hue
     from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams, farneback_flow, pyramid_plan
     from opticalflowclustering_tpu_torch.flow.render import render_flow_hsv_bgr
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.kernels import flow_launches, reset_launches
     from opticalflowclustering_tpu_torch.ops.colorspace import bgr2gray
     from opticalflowclustering_tpu_torch.parallel.mesh import make_mesh
     from opticalflowclustering_tpu_torch.parallel.spatial import spatial_farneback_flow_padded, spatial_hue_pipeline
@@ -138,9 +138,9 @@ def spatial_check(devs, h: int, w: int) -> None:
     params, grid = FarnebackParams(), GridParams()
     gray = bgr2gray(torch.from_numpy(synth_frames(3, h, w)).to(devs[0]))
     prev, nxt = gray[:-1], gray[1:]
-    kw.reset_launches()
+    reset_launches()
     flow = spatial_farneback_flow_padded(prev, nxt, make_mesh({"tp": 4}, devs), "tp", params)
-    launches = dict(kw.LAUNCHES)
+    launches = flow_launches()
     pad = (-h) % (4 * 2**params.levels)
 
     def padded(g):
@@ -149,9 +149,12 @@ def spatial_check(devs, h: int, w: int) -> None:
     want = farneback_flow(padded(prev), padded(nxt), params)[:, :h]
     diff = float((flow - want).abs().max())
     check(tuple(flow.shape) == (2, h, w, 2) and diff <= 5e-5, f"spatial flow tp=4: max |Δ| {diff} px")
-    # one box_solve launch per block, level and iteration on the card; the CPU runs the plain version
-    runs = 4 * len(pyramid_plan(h + pad, w, params)) * params.iterations if devs[0].type == "cuda" else 0
-    check(launches == {"warp_m": 0, "box_solve": runs, "gauss_solve": 0}, f"spatial flow launches {launches}, expected {runs}")
+    # on the card, box_solve one launch per block, level and iteration, the poly expansion one per block,
+    # level and image, no warp_m and no pyramid kernel (the blocks blur with the plain blur); on the CPU none
+    blocks_levels = 4 * len(pyramid_plan(h + pad, w, params)) if devs[0].type == "cuda" else 0
+    want_launches = {"warp_m": 0, "box_solve": blocks_levels * params.iterations, "gauss_solve": 0,
+                     "poly_expansion": blocks_levels * 2, "pyramid": 0}
+    check(launches == want_launches, f"spatial flow launches {launches}, expected {want_launches}")
     got = spatial_hue_pipeline(prev, nxt, make_mesh({"tp": 2}, devs[:2]), "tp", grid, params)
     f = farneback_flow(prev, nxt, params)
     bgr = render_flow_hsv_bgr(f)
@@ -180,7 +183,7 @@ def main(argv=None) -> int:
     from opticalflowclustering_tpu_torch.features.grid import GridParams
     from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams
     from opticalflowclustering_tpu_torch.io.video import write_video_mjpg
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
+    from opticalflowclustering_tpu_torch.kernels import flow_launches, reset_launches
     from opticalflowclustering_tpu_torch.parallel.mesh import cuda_devices, make_mesh
     from opticalflowclustering_tpu_torch.parallel.temporal import (
         sharded_hue_pipeline_videos,
@@ -209,20 +212,20 @@ def main(argv=None) -> int:
         seq_dir, dp_dir = os.path.join(tmp, "seq"), os.path.join(tmp, "dp")
 
         check(processqueue.main([*paths, "-o", seq_dir, "--device", args.device]) == 0, "sequential CLI")
-        kw.reset_launches()
+        reset_launches()
         check(processqueue.main([*paths, "-o", dp_dir, "--dp", "2", "--sp", "2", "--device", args.device]) == 0,
               "dp CLI")
         check(q.LAST_DP_STATS["batches"] == 2 and q.LAST_DP_STATS["batch_failures"] == 0, f"{q.LAST_DP_STATS}")
         check_artifacts(paths, dp_dir, seq_dir)
         print(f"1. processqueue --dp 2 --sp 2 over {[str(d) for d in devs]}: artifacts = sequential queue's; "
-              f"launches {kw.LAUNCHES}, stats {q.LAST_DP_STATS}")
+              f"launches {flow_launches()}, stats {q.LAST_DP_STATS}")
 
         mesh = make_mesh({"dp": 2, "sp": 2}, devs)
         videos = np.stack([frames[:16], frames[16:32]])
         params = FarnebackParams(warp_mode="fast")
-        kw.reset_launches()
+        reset_launches()
         got = sharded_hue_pipeline_videos(videos, mesh, grid=GridParams(), params=params)
-        launches = dict(kw.LAUNCHES)
+        launches = flow_launches()
         want = unsharded_hue_pipeline_videos(videos, GridParams(), params, device=devs[0])
         check_same(dict(zip(KEYS, (t.numpy() for t in got))), dict(zip(KEYS, (t.cpu().numpy() for t in want))),
                    "temporal")

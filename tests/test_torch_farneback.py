@@ -18,9 +18,12 @@ from opticalflowclustering_tpu.kernels.warp import (
     quantize_r1_fast16 as j_quantize_r1_fast16,
 )
 from opticalflowclustering_tpu.kernels.warp import update_matrices_gather
-from opticalflowclustering_tpu_torch import runtime
+from opticalflowclustering_tpu_torch import kernels, runtime
 from opticalflowclustering_tpu_torch.flow import farneback as tfb
+from opticalflowclustering_tpu_torch.kernels import poly as kp
+from opticalflowclustering_tpu_torch.kernels import pyramid as kpyr
 from opticalflowclustering_tpu_torch.kernels import warp as kw
+from torch_rehearsal import kernel_path_on_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -88,11 +91,11 @@ def test_warp_m_reference_matches_update_matrices_gather(hw, sigma, lead):
     fx, fy = _planes(flow)
     got = _cl(kw.warp_m_reference(_cf(r0), _cf(r1), fx, fy), lead)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
-    before = dict(kw.LAUNCHES)
+    before = dict(kernels.LAUNCHES)
     np.testing.assert_array_equal(
         _cl(kw.warp_m(_cf(r0), _cf(r1), fx, fy), lead), got
     )
-    assert kw.LAUNCHES == before  # the CPU path launches no kernel
+    assert kernels.LAUNCHES == before  # the CPU path launches no kernel
 
 
 def test_warp_m_reference_bitwise_on_integer_exact_case():
@@ -271,14 +274,54 @@ def test_kernel_entries_raise_on_cpu_tensors():
     before any build, and no launch is counted."""
     rng = np.random.default_rng(18)
     r0, r1, flow = _rand_case(rng, (16, 32), 1.0)
-    before = dict(kw.LAUNCHES)
+    before = dict(kernels.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kw.warp_m_cuda(_cf(r0), _cf(r1), *_planes(flow))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kw.box_solve_cuda(_cf(r0), 15)
     with pytest.raises(ValueError, match="odd winsize"):
         kw.box_solve_cuda(_cf(r0), 19)
-    assert kw.LAUNCHES == before
+    assert kernels.LAUNCHES == before
+
+
+def _kernel_case(name: str):
+    """(entry's module, arguments) of a small input each flow kernel takes."""
+    gen = torch.Generator().manual_seed(19)
+    m = torch.randn((2, 5, 12, 20), generator=gen) * 10
+    img = torch.randint(0, 256, (2, 16, 24), generator=gen).float()
+    return {
+        "warp_m": (kw, (m, torch.randn((2, 5, 12, 20), generator=gen) * 10,
+                        torch.randn((2, 12, 20), generator=gen), torch.randn((2, 12, 20), generator=gen))),
+        "box_solve": (kw, (m, 5)),
+        "gauss_solve": (kw, (m, 5)),
+        "poly_expansion": (kp, (img, 5, 1.2)),
+        "pyramid": (kpyr, (img, 3, 0.5, (8, 12))),
+    }[name]
+
+
+def _same_bits(got, want) -> bool:
+    got, want = ((t,) if isinstance(t, torch.Tensor) else t for t in (got, want))
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want, strict=True))
+
+
+@pytest.mark.parametrize("name", kernels.FLOW_KERNELS)
+def test_each_flow_kernel_has_one_entry_and_one_count(name, request):
+    """Each flow kernel's entry (named after its launch key) runs its plain
+    version bit for bit on a CPU tensor, with no launch counted; with the
+    rehearsal's patch it calls its counted launcher once; and a reset of the
+    registry zeroes every kernel's count."""
+    mod, args = _kernel_case(name)
+    entry, plain = getattr(mod, name), getattr(mod, f"{name}_reference")
+    want = plain(*args)
+    kernels.reset_launches()
+    assert _same_bits(entry(*args), want)
+    assert not any(kernels.LAUNCHES.values())
+    request.getfixturevalue("kernel_path_on_cpu")
+    assert _same_bits(entry(*args), want)
+    assert kernels.LAUNCHES == {k: int(k == name) for k in kernels.LAUNCHES}
+    kernels.LAUNCHES.update(dict.fromkeys(kernels.LAUNCHES, 3))
+    kernels.reset_launches()
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.FLOW_KERNELS + ("loop_probe", "dynslice"), 0)
 
 
 def test_unsupported_modes_and_devices_raise(monkeypatch):

@@ -18,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+from opticalflowclustering_tpu_torch import kernels
 from opticalflowclustering_tpu_torch.flow import farneback as tfb
 from opticalflowclustering_tpu_torch.kernels import warp as kw
+from torch_rehearsal import kernel_path_on_cpu, rehearse_phase  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -182,7 +184,7 @@ def test_box_window_opens_no_gauss_span(tmp_path):
 
 
 def test_kernel_entry_refuses_what_it_does_not_take():
-    kw.reset_launches()
+    kernels.reset_launches()
     m = _m((1, 16, 32), 0)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kw.gauss_solve_cuda(m, 13)
@@ -191,7 +193,7 @@ def test_kernel_entry_refuses_what_it_does_not_take():
             kw.gauss_solve_cuda(m, winsize)
     with pytest.raises(ValueError, match=r"\[B, 5, H, W\]"):
         kw.gauss_solve_cuda(m[:, :4], 13)
-    assert kw.LAUNCHES == {"warp_m": 0, "box_solve": 0, "gauss_solve": 0}
+    assert kernels.flow_launches() == {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 0, "pyramid": 0}
 
 
 def test_plain_gaussian_solve_matches_jax_at_winsize_13():
@@ -225,49 +227,14 @@ def test_flow_at_the_accurate_settings_matches_jax(mode):
     assert abs(float(np.median(got[..., 0])) - 1.5) < 0.5  # real motion
 
 
-def _rehearse_gauss_phase(monkeypatch, gauss):
-    """chip_smoke.gauss_phase on the CPU: the kernel entries counted plain
-    versions (the poly expansion's and the pyramid's taken on CPU tensors
-    too, as on the card), with `gauss` for gauss_solve; the CUDA-event
-    timer one host-clocked call."""
-    import time
-
-    import types
-
-    import chip_smoke
-    from opticalflowclustering_tpu_torch.kernels import poly as kp
-    from opticalflowclustering_tpu_torch.kernels import pyramid as kpyr
-
-    for mod, name, plain in ((kw, "warp_m", kw.warp_m_reference), (kw, "gauss_solve", gauss),
-                             (kp, "poly_expansion", kp.poly_expansion_reference),
-                             (kpyr, "pyramid", kpyr.pyramid_reference)):
-        def run(*args, mod=mod, name=name, plain=plain):
-            mod.LAUNCHES[name] += 1
-            return plain(*args)
-
-        monkeypatch.setattr(mod, "pyramid_level" if mod is kpyr else name, run)
-    monkeypatch.setattr(tfb, "poly_kernel_takes", lambda img, n: n <= tfb.MAX_KERNEL_POLY_N)
-    card = types.SimpleNamespace(device=torch.device("cuda"))
-    takes = tfb.pyramid_kernel_takes
-    monkeypatch.setattr(tfb, "pyramid_kernel_takes", lambda img, *args: takes(card, *args))
-
-    def host_ms(fn, iters):
-        t0 = time.perf_counter()
-        fn()
-        return (time.perf_counter() - t0) * 1e3
-
-    monkeypatch.setattr(chip_smoke, "loop_ms", host_ms)
-    return chip_smoke
-
-
-def test_chip_smoke_gauss_phase_rehearsal(monkeypatch, capsys):
+def test_chip_smoke_gauss_phase_rehearsal(monkeypatch, capsys, kernel_path_on_cpu):
     """Every level and every shape checked alone is checked at each winsize
     of GAUSS_WINSIZES; the levels are timed beside their bound, the finest
     in turns with the plain version; process_frames at the accurate
     settings launches what flow_runs designs."""
     from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
 
-    chip_smoke = _rehearse_gauss_phase(monkeypatch, kw.gauss_solve_reference)
+    chip_smoke = rehearse_phase(monkeypatch, kernel_path_on_cpu, "gauss_solve", kw.gauss_solve_reference)
     params = tfb.FarnebackParams(warp_mode="fast", **{**chip_smoke.ACCURATE, "iterations": 2})
     assert chip_smoke.ACCURATE == ACCURATE
     frames = synth_frames(5, 96, 160)
@@ -288,7 +255,7 @@ def test_chip_smoke_gauss_phase_rehearsal(monkeypatch, capsys):
     assert "time gauss_solve [1,5,5,7]" not in out
 
 
-def test_chip_smoke_gauss_phase_fails_on_one_ulp(monkeypatch):
+def test_chip_smoke_gauss_phase_fails_on_one_ulp(monkeypatch, kernel_path_on_cpu):
     """A kernel one unit in the last place off the plain version at one
     value fails the phase."""
     def one_ulp_off(m, winsize):
@@ -296,7 +263,7 @@ def test_chip_smoke_gauss_phase_fails_on_one_ulp(monkeypatch):
         fy.view(torch.int32)[0, 4, 4] ^= 1
         return fx, fy
 
-    chip_smoke = _rehearse_gauss_phase(monkeypatch, one_ulp_off)
+    chip_smoke = rehearse_phase(monkeypatch, kernel_path_on_cpu, "gauss_solve", one_ulp_off)
     params = tfb.FarnebackParams(warp_mode="fast", **ACCURATE)
     with pytest.raises(AssertionError, match=r"gauss_solve winsize 3 \[1,5,9,9\]: 1 values differ in their bits"):
         chip_smoke.gauss_phase(torch.device("cpu"), "[cpu]", [(1, 9, 9)], params, None)
@@ -322,9 +289,9 @@ def test_kernel_is_bitwise_the_plain_version(cuda, shape, winsize):
     m = _m(shape, 100 * winsize + sum(shape), cuda)
     m[..., ::7, ::5] = -0.0
     m[:, 3, 3::11, ::3] = 1e-40
-    kw.reset_launches()
+    kernels.reset_launches()
     got = kw.gauss_solve(m, winsize)
-    assert kw.LAUNCHES == {"warp_m": 0, "box_solve": 0, "gauss_solve": 1}
+    assert kernels.flow_launches() == {"warp_m": 0, "box_solve": 0, "gauss_solve": 1, "poly_expansion": 0, "pyramid": 0}
     want = kw.gauss_solve_reference(m, winsize)
     torch.cuda.synchronize()
     off = _bits_off(got, want)
@@ -334,10 +301,10 @@ def test_kernel_is_bitwise_the_plain_version(cuda, shape, winsize):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 0, 8), (1, 8, 0), (65536, 1, 1)], ids=lambda s: "x".join(map(str, s)))
 def test_launcher_refuses_what_it_does_not_take(cuda, shape):
-    kw.reset_launches()
+    kernels.reset_launches()
     with pytest.raises(RuntimeError, match="gauss_solve launch failed"):
         kw.gauss_solve(torch.zeros((shape[0], 5) + shape[1:], device=cuda), 13)
-    assert kw.LAUNCHES["gauss_solve"] == 0
+    assert kernels.LAUNCHES["gauss_solve"] == 0
 
 
 @pytest.mark.cuda
@@ -345,20 +312,18 @@ def test_flow_at_the_accurate_settings_on_the_card(cuda, monkeypatch):
     """`farneback_flow` on the card at the accurate settings: warp_m and
     gauss_solve at every level and iteration, no box_solve, and the flow
     within 1e-3 px (mean EPE) of the plain steps' on the card."""
-    from opticalflowclustering_tpu_torch.kernels import poly as kp
-
     a, b = (torch.from_numpy(x).to(cuda) for x in _pair((180, 320), 7))
     params = tfb.FarnebackParams(warp_mode="fast", **ACCURATE)
     levels = len(tfb.pyramid_plan(180, 320, params))
-    kw.reset_launches()
-    kp.reset_launches()
+    kernels.reset_launches()
     got = tfb.farneback_flow(a, b, params)
     runs = levels * params.iterations
-    assert kw.LAUNCHES == {"warp_m": runs, "box_solve": 0, "gauss_solve": runs}
-    assert kp.LAUNCHES == {"poly_expansion": 2 * levels}
+    solves = ("warp_m", "box_solve", "gauss_solve")
+    assert [kernels.LAUNCHES[k] for k in solves] == [runs, 0, runs]
+    assert kernels.LAUNCHES["poly_expansion"] == 2 * levels
     monkeypatch.setattr(tfb, "uses_kernels", lambda p: False)
     plain = tfb.farneback_flow(a, b, params)
-    assert kw.LAUNCHES == {"warp_m": runs, "box_solve": 0, "gauss_solve": runs}
+    assert [kernels.LAUNCHES[k] for k in solves] == [runs, 0, runs]
     assert bool(torch.isfinite(got).all())
     epe = float(torch.linalg.vector_norm(got - plain, dim=-1).mean())
     assert epe <= 1e-3, epe

@@ -28,6 +28,7 @@ from opticalflowclustering_tpu.ops.filters import gaussian_kernel
 from opticalflowclustering_tpu.ops.resize import _linear_weight_matrix
 from opticalflowclustering_tpu.pipeline.bounce import PipelineConfig as JPipe
 from opticalflowclustering_tpu_torch import convert
+from torch_rehearsal import kernel_path_on_cpu  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -224,7 +225,7 @@ def test_process_video_file_loads_no_jax_package_module():
     assert "LOADED []" in r.stdout, r.stdout
 
 
-def test_chip_smoke_probe_phase_rehearsal(monkeypatch, capsys):
+def test_chip_smoke_probe_phase_rehearsal(monkeypatch, capsys, kernel_path_on_cpu):
     """chip_smoke.probe_phase on the CPU at small sizes: the kernel entries
     are counted plain versions, the card timers (CUDA events and the CUDA
     graph's replay) a host-clocked loop and the SM clock a fixed 1980 MHz.
@@ -234,18 +235,18 @@ def test_chip_smoke_probe_phase_rehearsal(monkeypatch, capsys):
     phase returns the two probe entries of the results line with every field
     the contract names."""
     import chip_smoke
+    from opticalflowclustering_tpu_torch import kernels
     from opticalflowclustering_tpu_torch.kernels import probes
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
     from opticalflowclustering_tpu_torch.scripts import gather_cost_probe as gcp
     from opticalflowclustering_tpu_torch.scripts import profile_r4 as pr4
     from opticalflowclustering_tpu_torch.utils import profiling
 
-    def counted(mod, name, plain):
+    def counted(name, plain):
         def run(*args):
-            mod.LAUNCHES[name] += 1
+            kernels.LAUNCHES[name] += 1
             return plain(*args)
 
-        monkeypatch.setattr(mod, name, run)
+        monkeypatch.setattr(probes, name, run)
 
     def host_ms(fn, repeats=10, warmup=1):
         for _ in range(warmup):
@@ -257,10 +258,8 @@ def test_chip_smoke_probe_phase_rehearsal(monkeypatch, capsys):
             best = min(best, time.perf_counter() - t0)
         return best * 1e3
 
-    counted(probes, "loop_probe", probes.loop_probe_reference)
-    counted(probes, "dynslice", probes.dynslice_reference)
-    counted(kw, "warp_m", kw.warp_m_reference)
-    counted(kw, "box_solve", kw.box_solve_reference)
+    counted("loop_probe", probes.loop_probe_reference)
+    counted("dynslice", probes.dynslice_reference)
     def host_graph_ms(fn, launches=200, repeats=10):
         return host_ms(lambda: [fn() for _ in range(launches)], repeats) / launches
 
@@ -288,15 +287,15 @@ def test_chip_smoke_probe_phase_rehearsal(monkeypatch, capsys):
         line = next(ln for ln in out.splitlines() if ln.startswith(f"time loop_probe {body} "))
         assert "ALU" in line and "acc chain" in line and "shared memory" in line and "1980 MHz" in line
         assert (f"bank conflicts loop_probe {body}:" in out) == (probes.STAGED_ROWS[body] > 0)
-    assert probes.LAUNCHES["loop_probe"] > 0 and probes.LAUNCHES["dynslice"] > 0
-    assert kw.LAUNCHES["warp_m"] > 0 and kw.LAUNCHES["box_solve"] > 0
+    assert kernels.LAUNCHES["loop_probe"] > 0 and kernels.LAUNCHES["dynslice"] > 0
+    assert kernels.LAUNCHES["warp_m"] > 0 and kernels.LAUNCHES["box_solve"] > 0
     assert [e["name"] for e in entries] == ["loop_probe", "dynslice"]
     for e in entries:
         assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(e)
         assert e["bound_ms"] > 0 and e["bound_by"] in ("bytes", "operations")
         assert e["route"] == "cuda" and os.path.isfile(os.path.join(REPO, e["source"]))
-        assert e["launches"] == probes.LAUNCHES[e["name"]] and e["max_abs_err"] == 0.0
+        assert e["launches"] == kernels.LAUNCHES[e["name"]] and e["max_abs_err"] == 0.0
         for ref in e["replaces"].split(", "):
             path, line = ref.split(":")
             with open(os.path.join(REPO, path)) as f:
@@ -463,33 +462,16 @@ def test_spatial_entry_and_extras_modules_import_no_jax_or_cv2():
     assert "LOADED []" in r.stdout, r.stdout
 
 
-def _rehearse_on_cpu(monkeypatch):
-    """chip_smoke's new phases on the CPU: the kernel entries are counted
-    plain versions (the poly expansion's and the pyramid's taken on CPU
-    tensors too, as on the card), "cuda" resolves to the CPU, one timing
-    repeat, and the cv2 demo check reads 5 frames."""
-    import types
-
+@pytest.fixture
+def rehearsal(monkeypatch, kernel_path_on_cpu):
+    """chip_smoke's phases on the CPU: the card's path through the flow
+    kernels with counted plain launchers (`kernel_path_on_cpu`), "cuda"
+    resolves to the CPU, one timing repeat, and the cv2 demo check reads 5
+    frames. Gives (chip_smoke, pipeline.bounce)."""
     import chip_smoke
     from opticalflowclustering_tpu_torch import runtime
-    from opticalflowclustering_tpu_torch.flow import farneback
-    from opticalflowclustering_tpu_torch.kernels import poly as kp
-    from opticalflowclustering_tpu_torch.kernels import pyramid as kpyr
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
     from opticalflowclustering_tpu_torch.pipeline import bounce
 
-    for mod, name, plain in ((kw, "warp_m", kw.warp_m_reference), (kw, "box_solve", kw.box_solve_reference),
-                             (kp, "poly_expansion", kp.poly_expansion_reference),
-                             (kpyr, "pyramid", kpyr.pyramid_reference)):
-        def run(*args, mod=mod, name=name, plain=plain):
-            mod.LAUNCHES[name] += 1
-            return plain(*args)
-
-        monkeypatch.setattr(mod, "pyramid_level" if mod is kpyr else name, run)
-    monkeypatch.setattr(farneback, "poly_kernel_takes", lambda img, n: n <= farneback.MAX_KERNEL_POLY_N)
-    card = types.SimpleNamespace(device=torch.device("cuda"))
-    takes = farneback.pyramid_kernel_takes
-    monkeypatch.setattr(farneback, "pyramid_kernel_takes", lambda img, *args: takes(card, *args))
     real = runtime.resolve_device
 
     def to_cpu(name):
@@ -500,10 +482,10 @@ def _rehearse_on_cpu(monkeypatch):
     monkeypatch.setattr(chip_smoke, "REPEATS", 1)
     monkeypatch.setattr(chip_smoke, "DEMO_FRAMES", 5)
     torch.set_num_threads(1)
-    return chip_smoke, bounce, kw
+    return chip_smoke, bounce
 
 
-def test_chip_smoke_stream_and_findcosine_phases_rehearsal(monkeypatch, capsys):
+def test_chip_smoke_stream_and_findcosine_phases_rehearsal(monkeypatch, capsys, rehearsal):
     """chip_smoke.stream_phase and findcosine_phase on a 7-frame 288×512
     clip at chunk 4 (two chunks, the second zero-padded): the stream's
     launches are the 2 chunks × 4 levels × 3 iterations the check expects,
@@ -512,7 +494,7 @@ def test_chip_smoke_stream_and_findcosine_phases_rehearsal(monkeypatch, capsys):
     window."""
     from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
 
-    chip_smoke, bounce, kw = _rehearse_on_cpu(monkeypatch)
+    chip_smoke, bounce = rehearsal
     dev = torch.device("cpu")
     frames = synth_frames(7, 288, 512)
     cfg = bounce.PipelineConfig(chunk=4, flow=bounce.FarnebackParams(warp_mode="fast"))
@@ -528,7 +510,7 @@ def test_chip_smoke_stream_and_findcosine_phases_rehearsal(monkeypatch, capsys):
         assert tag in out, tag
 
 
-def test_chip_smoke_queue_and_temporal_phases_rehearsal_without_cv2(monkeypatch, capsys):
+def test_chip_smoke_queue_and_temporal_phases_rehearsal_without_cv2(monkeypatch, capsys, rehearsal):
     """chip_smoke.queue_phase and temporal_phase as on a machine without
     cv2: the queue's decoder is the in-memory stand-in (and is put back
     after), three 3-frame 288×512 clips give one dp batch and one
@@ -538,7 +520,7 @@ def test_chip_smoke_queue_and_temporal_phases_rehearsal_without_cv2(monkeypatch,
     from opticalflowclustering_tpu_torch.io import video as io_video
     from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
 
-    chip_smoke, bounce, kw = _rehearse_on_cpu(monkeypatch)
+    chip_smoke, bounce = rehearsal
     monkeypatch.setattr(chip_smoke, "have_cv2", lambda: False)
     real_read = io_video.read_video_bgr
     dev = torch.device("cpu")
@@ -609,7 +591,7 @@ def test_model_path_modules_import_no_jax_cv2_or_pandas():
     assert "LOADED []" in r.stdout, r.stdout
 
 
-def test_chip_smoke_model_phases_rehearsal(monkeypatch, capsys):
+def test_chip_smoke_model_phases_rehearsal(monkeypatch, capsys, rehearsal):
     """chip_smoke.model_phases on the CPU at small sizes: "cuda" resolves to
     the CPU in every module that resolves a device, the kernel entries are
     counted plain versions, one timing repeat, 3 realtime frames. Flow
@@ -622,7 +604,7 @@ def test_chip_smoke_model_phases_rehearsal(monkeypatch, capsys):
     from opticalflowclustering_tpu_torch.models import bounce_classifier, cnn, flow_cnn
     from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
 
-    chip_smoke, bounce, kw = _rehearse_on_cpu(monkeypatch)
+    chip_smoke, bounce = rehearsal
     for mod in (flow_cnn, cnn, bounce_classifier):
         monkeypatch.setattr(mod, "resolve_device", bounce.resolve_device)
     monkeypatch.setattr(chip_smoke, "REALTIME_FRAMES", 3)
@@ -654,7 +636,7 @@ def test_chip_smoke_model_phases_rehearsal(monkeypatch, capsys):
         assert tag in out, tag
 
 
-def test_chip_smoke_surface_phases_rehearsal(monkeypatch, capsys):
+def test_chip_smoke_surface_phases_rehearsal(monkeypatch, capsys, rehearsal):
     """chip_smoke.surface_phases on the CPU: "cuda" resolves to the CPU in
     the pipeline and in every CLI, the kernel entries are counted plain
     versions, one timing repeat, a 5-frame 144×256 clip. EPE against cv2
@@ -666,7 +648,7 @@ def test_chip_smoke_surface_phases_rehearsal(monkeypatch, capsys):
     from opticalflowclustering_tpu_torch.flow.farneback import pyramid_plan
     from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
 
-    chip_smoke, bounce, kw = _rehearse_on_cpu(monkeypatch)
+    chip_smoke, bounce = rehearsal
     dev = torch.device("cpu")
     frames = synth_frames(5, 144, 256)
     series = np.random.default_rng(0).integers(0, 180, 48).astype(np.float32)
@@ -694,13 +676,13 @@ def test_chip_smoke_surface_phases_rehearsal(monkeypatch, capsys):
 
 
 
-def test_chip_smoke_surface_phases_fail_on_a_wrong_epe_launch_count(monkeypatch):
+def test_chip_smoke_surface_phases_fail_on_a_wrong_epe_launch_count(monkeypatch, rehearsal):
     """chip_smoke.surface_phases holds the EPE phase's launches against the
     design's count and stops there: with the design off by one, the phase
     fails before drawgrids runs."""
     from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
 
-    chip_smoke, _, _ = _rehearse_on_cpu(monkeypatch)
+    chip_smoke, _ = rehearsal
     runs = chip_smoke.kernel_runs
     monkeypatch.setattr(chip_smoke, "kernel_runs", lambda *a: runs(*a) + 1)
     monkeypatch.setattr(chip_smoke, "drawgrids_phase", lambda *a: pytest.fail("ran past the EPE check"))
@@ -709,7 +691,7 @@ def test_chip_smoke_surface_phases_fail_on_a_wrong_epe_launch_count(monkeypatch)
         chip_smoke.surface_phases(torch.device("cpu"), "[cpu]", synth_frames(5, 144, 256), series, series)
 
 
-def test_chip_smoke_overlay_and_ops_phases_rehearsal(monkeypatch, capsys):
+def test_chip_smoke_overlay_and_ops_phases_rehearsal(monkeypatch, capsys, rehearsal):
     """chip_smoke.overlay_ops_phases on the CPU: "cuda" resolves to the CPU
     in the pipeline and in every CLI, the kernel entries are counted plain
     versions, the card timer is a host clock, one timing repeat, a 5-frame
@@ -726,7 +708,7 @@ def test_chip_smoke_overlay_and_ops_phases_rehearsal(monkeypatch, capsys):
         fn()
         return (time.perf_counter() - t0) * 1e3
 
-    chip_smoke, _, _ = _rehearse_on_cpu(monkeypatch)
+    chip_smoke, _ = rehearsal
     monkeypatch.setattr(chip_smoke, "OPS_CMP_HW", (144, 256))
     monkeypatch.setattr(profiling, "event_ms", host_ms)
     launches = chip_smoke.overlay_ops_phases(torch.device("cpu"), "[cpu rehearsal]", synth_frames(5, 288, 512))
@@ -744,7 +726,7 @@ def test_chip_smoke_overlay_and_ops_phases_rehearsal(monkeypatch, capsys):
         assert tag in out, tag
 
 
-def test_chip_smoke_spatial_dryrun_extras_phases_rehearsal(monkeypatch, capsys):
+def test_chip_smoke_spatial_dryrun_extras_phases_rehearsal(monkeypatch, capsys, rehearsal):
     """chip_smoke.spatial_dryrun_extras_phases on the CPU: "cuda" resolves to
     the CPU in every module that resolves a device, the kernel entries are
     counted plain versions, the card timer is a host clock, one timing
@@ -764,7 +746,7 @@ def test_chip_smoke_spatial_dryrun_extras_phases_rehearsal(monkeypatch, capsys):
         fn()
         return (time.perf_counter() - t0) * 1e3
 
-    chip_smoke, bounce, _ = _rehearse_on_cpu(monkeypatch)
+    chip_smoke, bounce = rehearsal
     for mod in (spatial, graft_entry):
         monkeypatch.setattr(mod, "resolve_device", bounce.resolve_device)
     monkeypatch.setattr(profiling, "event_ms", host_ms)
@@ -829,7 +811,7 @@ def test_native_decoder_needs_no_codec_library():
     assert not any(lib in deps for lib in ("libjpeg", "libturbojpeg", "libpng", "libz")), deps
 
 
-def test_chip_smoke_native_decode_phase_rehearsal(monkeypatch, capsys):
+def test_chip_smoke_native_decode_phase_rehearsal(monkeypatch, capsys, rehearsal):
     """chip_smoke.native_decode_phase on the CPU on a 7-frame 288×512 clip at
     chunk 4: the decoder builds, the clip and the demo clip decode the same
     at 1 thread and at every core, the demo clip to its pinned digest,
@@ -850,7 +832,7 @@ def test_chip_smoke_native_decode_phase_rehearsal(monkeypatch, capsys):
     from opticalflowclustering_tpu_torch.io import video as io_video
     from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
 
-    chip_smoke, bounce, _ = _rehearse_on_cpu(monkeypatch)
+    chip_smoke, bounce = rehearsal
     monkeypatch.setattr(chip_smoke, "ARITH_TILES", ("420_q75", "420_dac_l2_u5_k2"))
     real = (fastio.stream_mjpeg_avi, io_video.stream_video_chunks)
     cfg = bounce.PipelineConfig(chunk=4, flow=bounce.FarnebackParams(warp_mode="fast"))
@@ -886,7 +868,7 @@ def test_chip_smoke_native_decode_phase_rehearsal(monkeypatch, capsys):
         assert tag in out, tag
 
 
-def test_chip_smoke_select_phase_rehearsal(monkeypatch, capsys):
+def test_chip_smoke_select_phase_rehearsal(monkeypatch, capsys, rehearsal):
     """chip_smoke.select_phase on the CPU on a 5-frame 144×256 clip: the
     'select' flow on both clips (the clip's first 4 pairs and demo_out
     frames 30-34) agrees across "devices", its EPE against exact and cv2 is
@@ -894,7 +876,7 @@ def test_chip_smoke_select_phase_rehearsal(monkeypatch, capsys):
     no 'select' run launches a kernel."""
     from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
 
-    chip_smoke, _, _ = _rehearse_on_cpu(monkeypatch)
+    chip_smoke, _ = rehearsal
     launches = chip_smoke.select_phase(torch.device("cpu"), "[cpu rehearsal]", synth_frames(5, 144, 256))
     # 1 flow x 3 levels x 2 images, no warp kernel
     poly = {"warp_m": 0, "box_solve": 0, "gauss_solve": 0, "poly_expansion": 6, "pyramid": 6}
@@ -907,14 +889,14 @@ def test_chip_smoke_select_phase_rehearsal(monkeypatch, capsys):
         assert tag in out, tag
 
 
-def test_chip_smoke_select_phase_fails_on_a_kernel_launch(monkeypatch):
+def test_chip_smoke_select_phase_fails_on_a_kernel_launch(monkeypatch, rehearsal):
     """chip_smoke.select_phase holds the 'select' path to no kernel launch:
     with farneback_flow routed through the kernel wrappers, it fails at its
     first flow."""
     from opticalflowclustering_tpu_torch.flow import farneback
     from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
 
-    chip_smoke, _, _ = _rehearse_on_cpu(monkeypatch)
+    chip_smoke, _ = rehearsal
     monkeypatch.setattr(farneback, "uses_kernels", lambda params: True)
     with pytest.raises(AssertionError, match="select flow synthetic 256x144 launched"):
         chip_smoke.select_phase(torch.device("cpu"), "[cpu]", synth_frames(5, 144, 256))

@@ -1,8 +1,8 @@
-"""The polynomial-expansion kernel (`opticalflowclustering_tpu_torch.kernels.poly`)
-and the dispatch in `flow.farneback.poly_expansion`.
+"""The polynomial-expansion kernel (`opticalflowclustering_tpu_torch.kernels.poly`),
+its entry, and `flow.farneback.poly_expansion`, which calls it.
 
 On the CPU: the plain path for CPU tensors and for n above the kernel's
-maximum, the wrapper's refusals, the dispatch's layouts, and the plain
+maximum, the launcher's refusals, the layouts handed to it, and the plain
 version against the JAX package (imported inside that test, so that the
 file runs where JAX is missing). Tests marked `cuda` hold the kernel to
 the plain version bit for bit on the card and skip without one; run them
@@ -13,16 +13,16 @@ there with
 
 import importlib
 import sys
-import time
-import types
 
 import numpy as np
 import pytest
 import torch
 
+from opticalflowclustering_tpu_torch import kernels
 from opticalflowclustering_tpu_torch.flow import farneback as tfb
 from opticalflowclustering_tpu_torch.kernels import build as kbuild
 from opticalflowclustering_tpu_torch.kernels import poly as kp
+from torch_rehearsal import kernel_path_on_cpu, rehearse_phase  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -47,7 +47,7 @@ def _sigma(n: int) -> float:
 # kernel takes (1..8, one instantiation each) at the small and odd frames.
 BITWISE_CASES = list(dict.fromkeys(
     [(shape, n) for shape in LEVEL_SHAPES + SMALL_SHAPES for n in (3, 5, 7)]
-    + [(shape, n) for shape in SMALL_SHAPES + ODD_SHAPES for n in range(1, tfb.MAX_KERNEL_POLY_N + 1)]
+    + [(shape, n) for shape in SMALL_SHAPES + ODD_SHAPES for n in range(1, kp.MAX_KERNEL_POLY_N + 1)]
 ))
 
 
@@ -73,15 +73,15 @@ def test_cpu_tensor_takes_the_plain_path(no_build, channel_first):
 
 
 @pytest.mark.parametrize("n,takes", [(1, True), (5, True), (7, True), (8, True), (9, False), (12, False)])
-def test_n_above_the_kernels_maximum_takes_the_plain_path(no_build, n, takes):
-    on_card = types.SimpleNamespace(device=torch.device("cuda", 0))
-    assert tfb.poly_kernel_takes(on_card, n) is takes
-    assert not tfb.poly_kernel_takes(torch.zeros(4, 4), n)
-    assert tfb.MAX_KERNEL_POLY_N == 8
+def test_n_above_the_kernels_maximum_takes_the_plain_path(no_build, monkeypatch, n, takes):
+    assert kp.poly_expansion_takes(n) is takes
+    assert kp.MAX_KERNEL_POLY_N == 8
+    img = torch.from_numpy(np.random.default_rng(n).integers(0, 256, (1, 30, 34)).astype(np.float32))
+    want = tfb._poly_expansion_plain(img, n, 0.3 * n, channel_first=True)
+    assert torch.equal(tfb.poly_expansion(img, n, 0.3 * n, channel_first=True), want)  # a CPU tensor
     if not takes:
-        img = torch.from_numpy(np.random.default_rng(n).integers(0, 256, (1, 30, 34)).astype(np.float32))
-        got = tfb.poly_expansion(img, n, 0.3 * n, channel_first=True)
-        assert torch.equal(got, tfb._poly_expansion_plain(img, n, 0.3 * n, channel_first=True))
+        monkeypatch.setattr(kernels, "on_card", lambda t: True)
+        assert torch.equal(tfb.poly_expansion(img, n, 0.3 * n, channel_first=True), want)
 
 
 @pytest.mark.parametrize(
@@ -96,19 +96,20 @@ def test_n_above_the_kernels_maximum_takes_the_plain_path(no_build, n, takes):
     ],
 )
 def test_wrapper_refuses_what_the_kernel_does_not_take(no_build, make, match):
-    kp.reset_launches()
+    kernels.reset_launches()
     with pytest.raises(ValueError, match=match):
-        kp.poly_expansion(make(), 5, 1.2)
-    assert kp.LAUNCHES == {"poly_expansion": 0}
+        kp.poly_expansion_cuda(make(), 5, 1.2)
+    assert kernels.LAUNCHES["poly_expansion"] == 0
 
 
 def test_launch_counts_are_the_wrappers_own():
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
-
-    kp.LAUNCHES["poly_expansion"] = 3
-    kp.reset_launches()
-    assert kp.LAUNCHES == {"poly_expansion": 0}
-    assert set(kw.LAUNCHES) == {"warp_m", "box_solve", "gauss_solve"}
+    """The kernel has its own count in the registry, among the five flow
+    kernels', and the registry's reset zeroes it."""
+    kernels.LAUNCHES["poly_expansion"] = 3
+    assert kernels.flow_launches()["poly_expansion"] == 3
+    kernels.reset_launches()
+    assert kernels.LAUNCHES["poly_expansion"] == 0
+    assert kernels.FLOW_KERNELS == ("warp_m", "box_solve", "gauss_solve", "poly_expansion", "pyramid")
 
 
 def test_kernel_taps_and_yardstick():
@@ -123,17 +124,16 @@ def test_kernel_taps_and_yardstick():
 
 @pytest.mark.parametrize("lead", [(), (2,), (2, 3)])
 @pytest.mark.parametrize("channel_first", [False, True])
-def test_dispatch_hands_the_kernel_contiguous_float32_images(monkeypatch, lead, channel_first):
-    """With the gate open on the CPU and the launch replaced by the plain
-    version, the dispatch's reshapes and layouts give the plain result."""
+def test_dispatch_hands_the_kernel_contiguous_float32_images(kernel_path_on_cpu, lead, channel_first):
+    """On the card's path with the launch replaced by the plain version, the
+    flow's and the entry's reshapes and layouts give the plain result."""
     calls = []
 
     def fake_launch(x, n, sigma):
         calls.append((tuple(x.shape), x.dtype, x.is_contiguous()))
         return kp.poly_expansion_reference(x, n, sigma)
 
-    monkeypatch.setattr(tfb, "poly_kernel_takes", lambda img, n: True)
-    monkeypatch.setattr(kp, "poly_expansion", fake_launch)
+    kernel_path_on_cpu("poly_expansion", fake_launch)
     rng = np.random.default_rng(1)
     img = torch.from_numpy(rng.integers(0, 256, lead + (20, 44)).astype(np.uint8))
     img = img.transpose(-1, -2).contiguous().transpose(-1, -2)  # not contiguous
@@ -162,39 +162,19 @@ def test_plain_poly_expansion_matches_jax_at_the_crops_levels(n, sigma, hw):
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
-def _rehearse_poly_phase(monkeypatch, launch):
-    """chip_smoke.poly_phase on the CPU: the kernel entry `launch` counted,
-    the CUDA-event timer one host-clocked call."""
-    import chip_smoke
-
-    def counted(x, n, sigma):
-        kp.LAUNCHES["poly_expansion"] += 1
-        return launch(x, n, sigma)
-
-    def host_ms(fn, iters):
-        t0 = time.perf_counter()
-        fn()
-        return (time.perf_counter() - t0) * 1e3
-
-    monkeypatch.setattr(kp, "poly_expansion", counted)
-    monkeypatch.setattr(chip_smoke, "loop_ms", host_ms)
-    kp.reset_launches()
-    return chip_smoke
-
-
-def test_chip_smoke_poly_phase_rehearsal(monkeypatch, capsys):
+def test_chip_smoke_poly_phase_rehearsal(monkeypatch, capsys, kernel_path_on_cpu):
     """Every level and every shape checked alone is checked at each n of
     POLY_CHECK; the levels are timed beside their bound, the finest in turns
     with the plain version; the launches are counted and the finest level's
     times and the error measured returned."""
-    chip_smoke = _rehearse_poly_phase(monkeypatch, kp.poly_expansion_reference)
+    chip_smoke = rehearse_phase(monkeypatch, kernel_path_on_cpu, "poly_expansion", kp.poly_expansion_reference)
     levels = [(2, 40, 72), (2, 20, 36)]
     got = chip_smoke.poly_phase(torch.device("cpu"), "[cpu]", levels, tfb.FarnebackParams(), [(2, 9, 11)])
     assert set(got) == {"ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err"} and got["bound_by"] == "bytes"
     assert got["bound_ms"] == pytest.approx(2 * 40 * 72 * 24 / 3.35e12 * 1e3)
     assert got["max_abs_err"] == 0.0
     per_level = len(chip_smoke.POLY_CHECK)
-    assert kp.LAUNCHES == {"poly_expansion": 3 * per_level + 2 + 1}
+    assert kernels.LAUNCHES["poly_expansion"] == 3 * per_level + 2 + 1
     out = capsys.readouterr().out
     for tag in ("check poly_expansion n=3, 5, 7 [2,40,72]: bitwise equal to the plain version",
                 "check poly_expansion n=3, 5, 7 [2,9,11]: bitwise equal to the plain version",
@@ -207,7 +187,7 @@ def test_chip_smoke_poly_phase_rehearsal(monkeypatch, capsys):
     assert chip_smoke.poly_runs(74, 16, 232, 220, tfb.FarnebackParams()) == 30
 
 
-def test_chip_smoke_poly_phase_fails_on_one_ulp(monkeypatch):
+def test_chip_smoke_poly_phase_fails_on_one_ulp(monkeypatch, kernel_path_on_cpu):
     """A kernel one unit in the last place off the plain version at one
     value fails the phase."""
     def one_ulp_off(x, n, sigma):
@@ -215,7 +195,7 @@ def test_chip_smoke_poly_phase_fails_on_one_ulp(monkeypatch):
         out.view(torch.int32)[0, 2, 4, 4] ^= 1
         return out
 
-    chip_smoke = _rehearse_poly_phase(monkeypatch, one_ulp_off)
+    chip_smoke = rehearse_phase(monkeypatch, kernel_path_on_cpu, "poly_expansion", one_ulp_off)
     with pytest.raises(AssertionError, match=r"poly_expansion n=3 \[1,9,9\]: 1 values differ in their bits"):
         chip_smoke.poly_phase(torch.device("cpu"), "[cpu]", [(1, 9, 9)], tfb.FarnebackParams())
 
@@ -253,9 +233,9 @@ def _image(kind: str, shape, seed: int, dev) -> torch.Tensor:
 def test_kernel_is_bitwise_the_plain_version(cuda, kind, shape, n):
     sigma = _sigma(n)
     x = _image(kind, shape, 1000 * INPUTS.index(kind) + sum(shape) + n, cuda)
-    kp.reset_launches()
+    kernels.reset_launches()
     got = kp.poly_expansion(x, n, sigma)
-    assert kp.LAUNCHES == {"poly_expansion": 1}
+    assert kernels.LAUNCHES["poly_expansion"] == 1
     want = kp.poly_expansion_reference(x, n, sigma)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (shape[0], 5) + shape[1:]
@@ -268,10 +248,10 @@ def test_kernel_is_bitwise_the_plain_version(cuda, kind, shape, n):
 def test_launcher_refuses_what_it_does_not_take(cuda, shape):
     """The C launcher's own guard: an empty frame or more than 65535 images
     raise through the binding, and nothing is counted."""
-    kp.reset_launches()
+    kernels.reset_launches()
     with pytest.raises(RuntimeError, match="poly_expansion launch failed"):
         kp.poly_expansion(torch.zeros(shape, device=cuda), 5, 1.2)
-    assert kp.LAUNCHES == {"poly_expansion": 0}
+    assert kernels.LAUNCHES["poly_expansion"] == 0
 
 
 @pytest.mark.cuda
@@ -280,11 +260,11 @@ def test_dispatch_on_the_card(cuda, channel_first):
     """`flow.farneback.poly_expansion` on a CUDA uint8 [2, 3, H, W] batch:
     one launch, the plain version's bits in either layout."""
     img = torch.randint(0, 256, (2, 3, 90, 160), dtype=torch.uint8, device=cuda)
-    kp.reset_launches()
+    kernels.reset_launches()
     got = tfb.poly_expansion(img, 5, 1.2, channel_first=channel_first)
-    assert kp.LAUNCHES == {"poly_expansion": 1}
+    assert kernels.LAUNCHES["poly_expansion"] == 1
     want = tfb._poly_expansion_plain(img, 5, 1.2, channel_first=channel_first)
     assert got.shape == want.shape
     assert torch.equal(got.contiguous().view(torch.int32), want.view(torch.int32))
     assert torch.equal(tfb.poly_expansion(img, 9, 2.0), tfb._poly_expansion_plain(img, 9, 2.0))
-    assert kp.LAUNCHES == {"poly_expansion": 1}
+    assert kernels.LAUNCHES["poly_expansion"] == 1

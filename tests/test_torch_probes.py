@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from opticalflowclustering_tpu_torch import kernels
 from opticalflowclustering_tpu_torch.kernels import probes
 from opticalflowclustering_tpu_torch.scripts import profile_r4 as pr4
 
@@ -231,10 +232,10 @@ def test_wrappers_take_cpu_tensors_and_check_their_inputs():
     inputs raise in both."""
     x = torch.zeros((80, 128))
     idx = torch.zeros((80, 128), dtype=torch.int32)
-    before = dict(probes.LAUNCHES)
+    before = dict(kernels.LAUNCHES)
     assert probes.loop_probe("mul", x, idx, 3).shape == (80, 128)
     assert probes.dynslice(x.to(torch.bfloat16), torch.tensor([1], dtype=torch.int32)).shape == (24, 128)
-    assert probes.LAUNCHES == before
+    assert kernels.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA tensor"):
         probes.loop_probe_cuda("take", x, idx, 3)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -256,7 +257,7 @@ def test_wrappers_take_cpu_tensors_and_check_their_inputs():
         probes.dynslice(x, torch.tensor([1], dtype=torch.int32))
     with pytest.raises(ValueError, match="int32"):
         probes.dynslice(x.to(torch.bfloat16), torch.tensor([1, 2], dtype=torch.int32))
-    assert probes.LAUNCHES == before
+    assert kernels.LAUNCHES == before
 
 
 def test_out_of_range_indices_are_clamped():

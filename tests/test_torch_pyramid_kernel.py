@@ -1,10 +1,10 @@
-"""The pyramid kernel (`opticalflowclustering_tpu_torch.kernels.pyramid`) and
-the dispatch to it in `flow.farneback.farneback_flow`.
+"""The pyramid kernel (`opticalflowclustering_tpu_torch.kernels.pyramid`), its
+entry, and `flow.farneback.farneback_flow`, which calls it.
 
 On the CPU: the gate on every level of the benchmark's three
-configurations and its refusals, the wrapper's refusals, the kernel's
+configurations and its refusals, the launcher's refusals, the kernel's
 taps and yardstick, the flow's dispatch (the plain path for CPU tensors,
-and with the gate opened on the CPU, the shapes the kernel is handed), the
+and on the card's path rehearsed on the CPU, the shapes the kernel is handed), the
 plain version against the JAX package, and chip_smoke's pyramid phase
 rehearsed. Tests marked `cuda` hold the kernel to the plain version bit
 for bit on the card and skip without one; run them there with
@@ -15,17 +15,17 @@ for bit on the card and skip without one; run them there with
 import dataclasses
 import importlib
 import sys
-import time
-import types
 
 import numpy as np
 import pytest
 import torch
 
+from opticalflowclustering_tpu_torch import kernels
 from opticalflowclustering_tpu_torch.flow import farneback as tfb
 from opticalflowclustering_tpu_torch.kernels import build as kbuild
 from opticalflowclustering_tpu_torch.kernels import pyramid as kpyr
 from opticalflowclustering_tpu_torch.ops.filters import gaussian_kernel
+from torch_rehearsal import kernel_path_on_cpu, rehearse_phase  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -39,7 +39,6 @@ CONFIGS = {"bounce720-fast": (720, 1280, FAST), "bounce720-gauss": (720, 1280, A
 # Every level a configuration builds: (ksize, sigma, (h_k, w_k)).
 LEVELS = {name: [(tfb.pyramid_ksize(s), s, (h_k, w_k)) for _, h_k, w_k, s in tfb.pyramid_plan(h, w, p)]
           for name, (h, w, p) in CONFIGS.items()}
-ON_CARD = types.SimpleNamespace(device=torch.device("cuda", 0))
 
 
 def _refuse_build(*args, **kwargs):
@@ -68,8 +67,7 @@ def test_the_kernel_takes_every_level_of_each_configuration(name):
     assert [ks for ks, _, _ in levels] == {"bounce720-fast": [19, 9, 3, 3], "bounce720-gauss": [39, 19, 9, 3, 3],
                                            "cropflow-fast": [9, 3, 3]}[name]
     for ks, _, hw in levels:
-        assert tfb.pyramid_kernel_takes(ON_CARD, ks, (h, w), hw)
-        assert not tfb.pyramid_kernel_takes(torch.zeros(1, 4, 4), ks, (h, w), hw)
+        assert kpyr.pyramid_takes(ks, (h, w), hw)
 
 
 @pytest.mark.parametrize(
@@ -88,9 +86,8 @@ def test_the_kernel_takes_every_level_of_each_configuration(name):
     ],
 )
 def test_gate_refusals(ksize, hw, level_hw, takes):
-    assert tfb.MAX_KERNEL_PYRAMID_RADIUS == 39
-    assert tfb.pyramid_kernel_takes(ON_CARD, ksize, hw, level_hw) is takes
-    assert not tfb.pyramid_kernel_takes(torch.zeros(2, 2), ksize, hw, level_hw)
+    assert kpyr.MAX_KERNEL_PYRAMID_RADIUS == 39
+    assert kpyr.pyramid_takes(ksize, hw, level_hw) is takes
 
 
 @pytest.mark.parametrize(
@@ -105,10 +102,10 @@ def test_gate_refusals(ksize, hw, level_hw, takes):
     ],
 )
 def test_wrapper_refuses_what_the_kernel_does_not_take(no_build, make, args, match):
-    kpyr.reset_launches()
+    kernels.reset_launches()
     with pytest.raises(ValueError, match=match):
-        kpyr.pyramid_level(make(), *args)
-    assert kpyr.LAUNCHES == {"pyramid": 0}
+        kpyr.pyramid_cuda(make(), *args)
+    assert kernels.LAUNCHES["pyramid"] == 0
 
 
 @pytest.mark.parametrize(
@@ -119,10 +116,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(no_build, make, args, mat
 def test_wrapper_refuses_levels_and_radii_it_does_not_take(no_build, ksize, level_hw, match):
     """The level's sides and the radius are checked before the device,
     and before any launch."""
-    kpyr.reset_launches()
+    kernels.reset_launches()
     with pytest.raises(ValueError, match=match):
-        kpyr.pyramid_level(torch.zeros(2, 8, 8), ksize, 1.0, level_hw)
-    assert kpyr.LAUNCHES == {"pyramid": 0}
+        kpyr.pyramid_cuda(torch.zeros(2, 8, 8), ksize, 1.0, level_hw)
+    assert kernels.LAUNCHES["pyramid"] == 0
 
 
 def test_kernel_bytes_and_ops_against_the_chunk_figures():
@@ -162,18 +159,18 @@ def test_cpu_flow_takes_the_plain_path(no_build, name):
     h, w, params = CONFIGS[name]
     scale = 8 if h > 300 else 2  # a smaller frame of the same plan's ratios
     a, b = (_frames((2, h // scale, w // scale), s) for s in (1, 2))
-    kpyr.reset_launches()
+    kernels.reset_launches()
     got = tfb.farneback_flow(a, b, dataclasses.replace(params, iterations=1))
-    assert kpyr.LAUNCHES == {"pyramid": 0}
+    assert kernels.LAUNCHES["pyramid"] == 0
     assert got.shape == (2, h // scale, w // scale, 2) and bool(torch.isfinite(got).all())
     assert "ofc_torch_kernels" not in sys.modules
 
 
 @pytest.mark.parametrize("lead", [(), (2,)])
-def test_dispatch_hands_the_kernel_contiguous_float32_frames(monkeypatch, lead):
-    """With the gate opened on the CPU and the launch replaced by the plain
-    version, the flow hands the kernel each level's frames as contiguous
-    float32 [B, H, W] with the plan's sizes, and its flow keeps its bits."""
+def test_dispatch_hands_the_kernel_contiguous_float32_frames(request, lead):
+    """On the card's path with the launch replaced by the plain version, the
+    flow hands the kernel each level's frames as contiguous float32
+    [B, H, W] with the plan's sizes, and its flow keeps its bits."""
     calls = []
 
     def fake_launch(x, ksize, sigma, level_hw):
@@ -185,8 +182,7 @@ def test_dispatch_hands_the_kernel_contiguous_float32_frames(monkeypatch, lead):
     b = torch.from_numpy(rng.integers(0, 256, lead + (96, 160)).astype(np.uint8))
     params = tfb.FarnebackParams(warp_mode="fast", iterations=1)
     want = tfb.farneback_flow(a, b, params)
-    monkeypatch.setattr(tfb, "pyramid_kernel_takes", lambda img, ks, hw, lhw: True)
-    monkeypatch.setattr(kpyr, "pyramid_level", fake_launch)
+    request.getfixturevalue("kernel_path_on_cpu")("pyramid", fake_launch)
     got = tfb.farneback_flow(a, b, params)
     n = int(np.prod(lead)) if lead else 1
     plan = tfb.pyramid_plan(96, 160, params)
@@ -214,31 +210,11 @@ def test_plain_pyramid_matches_jax(ksize, sigma, hw, level_hw):
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
-def _rehearse_pyramid_phase(monkeypatch, launch):
-    """chip_smoke.pyramid_phase on the CPU: the kernel entry `launch`
-    counted, the CUDA-event timer one host-clocked call."""
-    import chip_smoke
-
-    def counted(x, ksize, sigma, level_hw):
-        kpyr.LAUNCHES["pyramid"] += 1
-        return launch(x, ksize, sigma, level_hw)
-
-    def host_ms(fn, iters):
-        t0 = time.perf_counter()
-        fn()
-        return (time.perf_counter() - t0) * 1e3
-
-    monkeypatch.setattr(kpyr, "pyramid_level", counted)
-    monkeypatch.setattr(chip_smoke, "loop_ms", host_ms)
-    kpyr.reset_launches()
-    return chip_smoke
-
-
-def test_chip_smoke_pyramid_phase_rehearsal(monkeypatch, capsys):
+def test_chip_smoke_pyramid_phase_rehearsal(monkeypatch, capsys, kernel_path_on_cpu):
     """Every level of each configuration is checked and timed beside its
     bound, and the chunk in turns with the plain stage; the launches are
     counted and the times, bounds and error measured returned."""
-    chip_smoke = _rehearse_pyramid_phase(monkeypatch, kpyr.pyramid_reference)
+    chip_smoke = rehearse_phase(monkeypatch, kernel_path_on_cpu, "pyramid", kpyr.pyramid_reference)
     configs = [("small-fast", 2, 256, 320, FAST), ("small-gauss", 1, 512, 544, ACCURATE)]
     got = chip_smoke.pyramid_phase(torch.device("cpu"), "[cpu]", configs)
     assert set(got) == {"small-fast", "small-gauss"}
@@ -250,7 +226,7 @@ def test_chip_smoke_pyramid_phase_rehearsal(monkeypatch, capsys):
             2 * sum(4 * b * (h * w + h_k * w_k) for _, h_k, w_k, _ in plan) / 3.35e12 * 1e3)
     n = [len(tfb.pyramid_plan(h, w, p)) for _, _, h, w, p in configs]
     assert n == [4, 5]
-    assert kpyr.LAUNCHES == {"pyramid": sum(6 * k for k in n)}  # checked, timed alone, 2 chunks of 2 images
+    assert kernels.LAUNCHES["pyramid"] == sum(6 * k for k in n)  # checked, timed alone, 2 chunks of 2 images
     out = capsys.readouterr().out
     for tag in ("check pyramid small-fast [2,256,320] to 32x40 (ksize 19), 64x80 (ksize 9), 128x160 (ksize 3), "
                 "256x320 (ksize 3): bitwise equal to the plain version, max_abs_err 0.0",
@@ -260,7 +236,7 @@ def test_chip_smoke_pyramid_phase_rehearsal(monkeypatch, capsys):
         assert tag in out, tag
 
 
-def test_chip_smoke_pyramid_phase_fails_on_one_ulp(monkeypatch):
+def test_chip_smoke_pyramid_phase_fails_on_one_ulp(monkeypatch, kernel_path_on_cpu):
     """A kernel one unit in the last place off the plain version at one
     value fails the phase."""
     def one_ulp_off(x, ksize, sigma, level_hw):
@@ -268,7 +244,7 @@ def test_chip_smoke_pyramid_phase_fails_on_one_ulp(monkeypatch):
         out.view(torch.int32)[0, 2, 3] ^= 1
         return out
 
-    chip_smoke = _rehearse_pyramid_phase(monkeypatch, one_ulp_off)
+    chip_smoke = rehearse_phase(monkeypatch, kernel_path_on_cpu, "pyramid", one_ulp_off)
     with pytest.raises(AssertionError, match=r"pyramid tiny \[1,64,64\] to 32x32 ksize 3: 1 values differ"):
         chip_smoke.pyramid_phase(torch.device("cpu"), "[cpu]", [("tiny", 1, 64, 64, FAST)])
 
@@ -278,7 +254,7 @@ def test_chip_smoke_counts_the_pyramid_among_the_flow_kernels():
     none in the row-sharded flow."""
     import chip_smoke
 
-    assert chip_smoke.FLOW_KERNELS[-1] == "pyramid"
+    assert kernels.FLOW_KERNELS[-1] == "pyramid"
     assert chip_smoke.flow_runs(48, 16, 720, 1280, FAST)["pyramid"] == 24
     assert chip_smoke.flow_runs(48, 16, 720, 1280, ACCURATE)["pyramid"] == 30
     assert chip_smoke.flow_runs(74, 16, 232, 220, FAST)["pyramid"] == 30
@@ -335,9 +311,9 @@ def _assert_bitwise(got, want):
 def test_kernel_is_bitwise_the_plain_version_at_every_level(cuda, kind, name, ksize, sigma, level_hw):
     h, w, _ = CONFIGS[name]
     x = _card_frames(kind, (16, h, w), ksize + level_hw[0], cuda)
-    kpyr.reset_launches()
-    got = kpyr.pyramid_level(x, ksize, sigma, level_hw)
-    assert kpyr.LAUNCHES == {"pyramid": 1}
+    kernels.reset_launches()
+    got = kpyr.pyramid_cuda(x, ksize, sigma, level_hw)
+    assert kernels.LAUNCHES["pyramid"] == 1
     _assert_bitwise(got, kpyr.pyramid_reference(x, ksize, sigma, level_hw))
 
 
@@ -346,7 +322,7 @@ def test_kernel_is_bitwise_the_plain_version_at_every_level(cuda, kind, name, ks
 def test_kernel_is_bitwise_the_plain_version_at_odd_shapes(cuda, b, h, w, ho, wo, sigma):
     ksize = tfb.pyramid_ksize(sigma)
     x = _card_frames("integer", (b, h, w), h + w, cuda)
-    got = kpyr.pyramid_level(x, ksize, sigma, (ho, wo))
+    got = kpyr.pyramid_cuda(x, ksize, sigma, (ho, wo))
     _assert_bitwise(got, kpyr.pyramid_reference(x, ksize, sigma, (ho, wo)))
 
 
@@ -355,7 +331,7 @@ def test_kernel_reads_a_batch_view_at_an_unaligned_offset(cuda):
     """A contiguous view starting one float into its storage takes the
     scalar loads, with the same bits."""
     x = _card_frames("integer", (1, 2 * 90 + 1, 160), 9, cuda).view(-1)[1:1 + 2 * 90 * 160].view(2, 90, 160)
-    got = kpyr.pyramid_level(x, 9, 1.5, (45, 40))
+    got = kpyr.pyramid_cuda(x, 9, 1.5, (45, 40))
     _assert_bitwise(got, kpyr.pyramid_reference(x, 9, 1.5, (45, 40)))
 
 
@@ -363,10 +339,10 @@ def test_kernel_reads_a_batch_view_at_an_unaligned_offset(cuda):
 def test_launcher_refuses_what_it_does_not_take(cuda):
     """The C launcher's own guard: more than 65535 images raise through the
     binding, and nothing is counted."""
-    kpyr.reset_launches()
+    kernels.reset_launches()
     with pytest.raises(RuntimeError, match="pyramid_level launch failed"):
-        kpyr.pyramid_level(torch.zeros((65536, 2, 2), device=cuda), 3, 0.0, (1, 1))
-    assert kpyr.LAUNCHES == {"pyramid": 0}
+        kpyr.pyramid_cuda(torch.zeros((65536, 2, 2), device=cuda), 3, 0.0, (1, 1))
+    assert kernels.LAUNCHES["pyramid"] == 0
 
 
 @pytest.mark.cuda
@@ -379,11 +355,11 @@ def test_flow_is_bitwise_with_and_without_the_kernel(cuda, monkeypatch, name):
     gen = torch.Generator(device=cuda).manual_seed(11)
     a = torch.randint(0, 256, (4, h, w), generator=gen, device=cuda, dtype=torch.uint8)
     b = torch.roll(a, shifts=(2, 3), dims=(1, 2))
-    kpyr.reset_launches()
+    kernels.reset_launches()
     got = tfb.farneback_flow(a, b, params)
     torch.cuda.synchronize()
-    assert kpyr.LAUNCHES == {"pyramid": 2 * len(LEVELS[name])}
-    monkeypatch.setattr(tfb, "pyramid_kernel_takes", lambda *args: False)
+    assert kernels.LAUNCHES["pyramid"] == 2 * len(LEVELS[name])
+    monkeypatch.setattr(kpyr, "pyramid_takes", lambda *args: False)
     want = tfb.farneback_flow(a, b, params)
-    assert kpyr.LAUNCHES == {"pyramid": 2 * len(LEVELS[name])}
+    assert kernels.LAUNCHES["pyramid"] == 2 * len(LEVELS[name])
     _assert_bitwise(got, want)

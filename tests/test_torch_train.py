@@ -35,6 +35,7 @@ from opticalflowclustering_tpu_torch.models import flow_cnn as tfc
 from opticalflowclustering_tpu_torch.parallel.mesh import make_mesh
 from opticalflowclustering_tpu_torch.parallel.train import make_fused_train_step as t_fused
 from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
+from torch_rehearsal import kernel_path_on_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -208,32 +209,29 @@ def test_fused_train_step_1x1_equals_jax_1x1(fused_case):
 
 
 @pytest.mark.parametrize("warp_mode", ["exact", "fast"])
-def test_fused_train_step_2x2_equals_1x1_with_the_wrapped_pair(fused_case, warp_mode, monkeypatch):
+def test_fused_train_step_2x2_equals_1x1_with_the_wrapped_pair(fused_case, warp_mode, kernel_path_on_cpu):
     """t_fused on a 2×2 mesh of CPU devices ↔ on a 1×1 mesh: losses of 3
     steps within rel 1e-5 and parameters within 1e-6. The wrapped pair is
     in the loss: relabelling only the last frame of each video changes the
     loss on both meshes. With warp_mode='fast' each block's flow goes
-    through the warp_m/box_solve wrappers (made counted plain versions here,
-    as on the card each wrapper counts its kernel's launches): 4 blocks ×
+    through the warp_m/box_solve kernels (on the card's path rehearsed on
+    the CPU, each launcher a counted plain version): 4 blocks ×
     levels × 3 iterations per step on the 2×2 mesh, a quarter of that on
     the 1×1; 'exact' goes through neither."""
+    from opticalflowclustering_tpu_torch import kernels
     from opticalflowclustering_tpu_torch.flow.farneback import pyramid_plan
-    from opticalflowclustering_tpu_torch.kernels import warp as kw
 
-    for name, plain in (("warp_m", kw.warp_m_reference), ("box_solve", kw.box_solve_reference)):
-        def run(*args, name=name, plain=plain):
-            kw.LAUNCHES[name] += 1
-            return plain(*args)
+    def solves():
+        return {k: kernels.LAUNCHES[k] for k in ("warp_m", "box_solve", "gauss_solve")}
 
-        monkeypatch.setattr(kw, name, run)
     videos, labels, jinit = fused_case
     flow = FarnebackParams(warp_mode=warp_mode)
-    kw.reset_launches()
+    kernels.reset_launches()
     m22, l22 = _run_port_fused(make_mesh({"dp": 2, "sp": 2}, ["cpu"] * 4), jinit, videos, labels, 3, flow)
-    n22 = dict(kw.LAUNCHES)
-    kw.reset_launches()
+    n22 = solves()
+    kernels.reset_launches()
     m11, l11 = _run_port_fused(make_mesh({"dp": 1, "sp": 1}, ["cpu"]), jinit, videos, labels, 3, flow)
-    n11 = dict(kw.LAUNCHES)
+    n11 = solves()
     np.testing.assert_allclose(l22, l11, rtol=1e-5)
     for (k, a), b in zip(m22.state_dict().items(), m11.state_dict().values()):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6, msg=k)
