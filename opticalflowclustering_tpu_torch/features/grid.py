@@ -14,6 +14,7 @@ All integer arithmetic, bitwise equal to the reference.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -74,8 +75,15 @@ def whiten_frame_lines(
         line = (y % ys == 0) | (x % xs == 0)
     else:
         line = ((y % ys == 0) & (y >= ys)) | ((x % xs == 0) & (x >= xs))
-    white = torch.tensor(255, dtype=frames.dtype, device=frames.device)
-    return torch.where((in_grid & line)[..., None], white, frames)
+    return torch.where((in_grid & line)[..., None], _white(frames.device, frames.dtype), frames)
+
+
+@functools.lru_cache(maxsize=None)
+def _white(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """255 as a 0-dim tensor on `device`, made once: a value made on the
+    host per call is an upload (or a fill kernel) in every chunk."""
+    with torch.inference_mode(False):
+        return torch.tensor(255, dtype=dtype, device=device)
 
 
 def grid_cell_sums(frames: torch.Tensor, grid: GridParams) -> torch.Tensor:

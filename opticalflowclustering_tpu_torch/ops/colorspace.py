@@ -34,6 +34,15 @@ def _hsv_div_tables() -> tuple[np.ndarray, np.ndarray]:
     return sdiv.astype(np.int32), hdiv.astype(np.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _hsv_div_tables_on(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_hsv_div_tables` on `device`, uploaded once per device: an upload
+    from pageable memory waits for the device's stream, so it is kept out
+    of every call."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(t).to(device) for t in _hsv_div_tables())
+
+
 def bgr2gray(bgr: torch.Tensor) -> torch.Tensor:
     """cv2.cvtColor(x, COLOR_BGR2GRAY) for uint8:
     y = (B*3735 + G*19235 + R*9798 + (1<<14)) >> 15."""
@@ -57,9 +66,7 @@ def bgr2rgb(x: torch.Tensor) -> torch.Tensor:
 def bgr2hsv(bgr: torch.Tensor) -> torch.Tensor:
     """cv2.cvtColor(x, COLOR_BGR2HSV) for uint8 (hsv_shift=12 with the
     division tables); H in [0,180), S and V in [0,255]."""
-    sdiv_np, hdiv_np = _hsv_div_tables()
-    sdiv = torch.from_numpy(sdiv_np).to(bgr.device)
-    hdiv = torch.from_numpy(hdiv_np).to(bgr.device)
+    sdiv, hdiv = _hsv_div_tables_on(bgr.device)
 
     x = bgr.to(torch.int32)
     b, g, r = x[..., 0], x[..., 1], x[..., 2]

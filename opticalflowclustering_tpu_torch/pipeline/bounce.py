@@ -7,22 +7,28 @@
     ──► per-frame mean |flow|                           → telemetry CSV
 
 Frame pairs are independent, so a video goes through in chunks of
-`cfg.chunk` pairs: each chunk is copied to the device once, straight from
-the caller's frames, runs `chunk_step` there, and only its tables (and the
-rendered flow, when asked for) come back to the host.
-`process_video_stream` also overlaps the host with the card: a thread
-decodes the next chunk while the card computes the current one, and chunk
-k's tables are copied back only after chunk k+1 has been enqueued; with
-`native=True` an MJPEG AVI is decoded by the port's threaded C++ decoder
-(`io.fastio`) instead of cv2. With `overlays` (YOLO boxes, contour masks),
-`process_frames` draws them onto each rendered frame on the device, between
-the render and the grid stage.
+`cfg.chunk` pairs, and one chunk loop (`_chunk_loop`) drives them all:
+`process_frames` over the chunks of a clip in memory, `process_video_stream`
+over the batches a decode thread assembles from a file (with `native=True`
+an MJPEG AVI is decoded by the port's threaded C++ decoder, `io.fastio`,
+instead of cv2). Only each chunk's tables (and the rendered flow, when
+asked for) come back to the host. On a CUDA device the loop is a software
+pipeline: chunk k+1 is copied into a pinned host slot (by a staging thread,
+for all but small chunks) and a copy stream uploads it while the card
+computes chunk k, and chunk k's tables come down on another stream and are
+read only after chunk k+1 has been enqueued. On the CPU it runs the same
+steps one after another. With
+`overlays` (YOLO boxes, contour masks), `process_frames` draws them onto each
+rendered frame on the device, between the render and the grid stage.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from collections.abc import Iterable
+import queue
+import threading
+from collections.abc import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -159,25 +165,25 @@ def process_frames(
     (the reference counts the first decoded frame as 1 and pairs from frame
     2, `KmeanGrids.py:169,189`) are drawn onto pair i's rendered frame on
     the device, before the grid stage, as `KmeanGrids.py:201-231` orders
-    them; the padded tail pairs of the last chunk get none."""
+    them; the padded tail pairs of the last chunk get none. The clip is
+    read, never written."""
     frames_bgr = np.asarray(frames_bgr)
     if frames_bgr.shape[0] < 2:
         raise ValueError("need at least 2 frames")
     dev = resolve_device(device)
     n_pairs = frames_bgr.shape[0] - 1
-    yolo = load_yolo_boxes(overlays.yolo_file) if overlays is not None and overlays.yolo_file else None
-    outs = []
-    for start in range(0, n_pairs, cfg.chunk):
-        with span("ofc.stack"):
-            chunk = torch.from_numpy(_chunk_frames(frames_bgr, start, cfg.chunk))
-        if overlays is None:
-            out = chunk_step(chunk, cfg, dev)
-        else:
-            out = _overlay_step(chunk, cfg, dev, overlays, yolo, start, min(cfg.chunk, n_pairs - start))
-        with span("ofc.readback"):
-            outs.append({k: v.cpu().numpy() for k, v in out.items()})
-    with span("ofc.readback"):
-        return {k: np.concatenate([o[k] for o in outs])[:n_pairs] for k in outs[0]}
+    if overlays is None:
+        def step(frames, k, n_valid):
+            return chunk_step(frames, cfg, dev)
+    else:
+        yolo = load_yolo_boxes(overlays.yolo_file) if overlays.yolo_file else None
+
+        def step(frames, k, n_valid):
+            return _overlay_step(frames, cfg, dev, overlays, yolo, k * cfg.chunk, n_valid)
+
+    chunks = ((_chunk_frames(frames_bgr, start, cfg.chunk), min(cfg.chunk, n_pairs - start))
+              for start in range(0, n_pairs, cfg.chunk))
+    return _chunk_loop(chunks, step, dev)
 
 
 @torch.inference_mode()
@@ -257,74 +263,258 @@ def process_video_stream(
     return tables
 
 
-@torch.inference_mode()
 def _stream_tables(
     chunks: Iterable[tuple[np.ndarray, int]], cfg: PipelineConfig, dev: torch.device
 ) -> dict[str, np.ndarray] | None:
-    """The device loop of `process_video_stream`, run on the caller's thread
-    over ([C+1, H, W, 3] uint8, n_valid) batches of one fixed shape (from
-    `io.video.prefetch_chunks` or `io.fastio.stream_mjpeg_avi`); None when
-    there is no batch.
-
-    On a CUDA device the host and the card overlap twice over. Each batch is
-    staged in one of two pinned host buffers and copied up with
-    `non_blocking`; its tables are copied down with `non_blocking` into one
-    of two pinned table buffers; and chunk k's tables are read only after
-    chunk k+1 has been enqueued. An event per buffer guards each reuse: the
-    host waits for a buffer's last upload before it refills it, and for a
-    chunk's downloads before it reads them. On the CPU the loop runs the same
-    steps synchronously."""
+    """The device loop of `process_video_stream`: `_chunk_loop` over
+    ([C+1, H, W, 3] uint8, n_valid) batches of one fixed shape (from
+    `io.video.prefetch_chunks` or `io.fastio.stream_mjpeg_avi`), tables
+    only; None when there is no batch."""
     cfg = dataclasses.replace(cfg, emit_flow_bgr=False)
+    return _chunk_loop(chunks, lambda frames, k, n_valid: chunk_step(frames, cfg, dev), dev)
+
+
+# Chunks through `_chunk_loop` since the last `reset_chunk_counts`: every
+# chunk; those uploaded from a pinned slot; and those whose slot was not
+# staged yet when the driving thread came to it (stalls).
+CHUNK_COUNTS = dict.fromkeys(("chunks", "pinned", "stalls"), 0)
+
+
+def reset_chunk_counts() -> None:
+    """Set every chunk count to 0."""
+    for k in CHUNK_COUNTS:
+        CHUNK_COUNTS[k] = 0
+
+
+Step = Callable[[torch.Tensor, int, int], dict[str, torch.Tensor]]
+
+
+@torch.inference_mode()
+def _chunk_loop(
+    chunks: Iterable[tuple[np.ndarray, int]], step: Step, dev: torch.device
+) -> dict[str, np.ndarray] | None:
+    """The one device loop: `step(frames, k, n_valid)` on chunk k of
+    `chunks`, ([C+1, H, W, 3] uint8, n_valid) pairs of one shape, and the
+    first n_valid rows of each of its outputs, concatenated over the chunks
+    on the host; None when there is no chunk.
+
+    On a CUDA device the loop is a software pipeline. `_staged` copies chunk
+    k+1 into one of two pinned host slots (on a staging thread, for all but
+    small chunks) while the card computes chunk k; a copy stream uploads it
+    into one of two device slots; the compute stream waits for that upload,
+    and the copy stream waits for the chunk that last read a device slot
+    before it overwrites it. Each chunk's outputs go down on a third stream
+    into pinned buffers, and chunk k's are read only after chunk k+1 has been
+    enqueued. On the CPU the same steps run one after another on the
+    caller's thread."""
     cuda = dev.type == "cuda"
-    staged = [None, None]  # pinned copies of the last two batches
-    uploaded = [None, None]  # event: the slot's upload has finished
-    fetched = [None, None]  # (pinned tables, event: their download has finished)
     parts: list[dict[str, np.ndarray]] = []
-    pending = None  # (slot, tables, n_valid) of the chunk not yet read
+    if cuda:
+        comp = torch.cuda.current_stream(dev)
+        up, down = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+        released: queue.Queue = queue.Queue()
+        slots: list[torch.Tensor | None] = [None, None]  # device frame slots
+        uploaded: list[torch.cuda.Event | None] = [None, None]  # event: the slot's upload has finished
+        computed: list[torch.cuda.Event | None] = [None, None]  # event: the chunk that read the slot is done
+        staged = _staged(chunks, released)
+    else:
+        staged = _unstaged(chunks)
 
-    def read(slot, tables, n_valid):
-        with span("ofc.readback"):
-            if cuda:
-                fetched[slot][1].synchronize()
-            parts.append({k: v[:n_valid].numpy().copy() for k, v in tables.items()})
-
-    for k, (batch, n_valid) in enumerate(chunks):
-        slot = k % 2
-        with span("ofc.stack"):
-            host = torch.from_numpy(batch)
-            if cuda:
-                if staged[slot] is None:
-                    staged[slot] = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-                else:
-                    uploaded[slot].synchronize()
-                staged[slot].copy_(host)
-                host = staged[slot]
+    def upload(slot, host):
+        if not cuda:
+            return host
         with span("ofc.upload"):
-            frames = host.to(dev, non_blocking=True)
-            if cuda:
-                uploaded[slot] = torch.cuda.Event()
-                uploaded[slot].record(torch.cuda.current_stream(dev))
-        out = chunk_step(frames, cfg, dev)
-        if cuda:
-            with span("ofc.readback"):
-                if fetched[slot] is None:
-                    fetched[slot] = (
-                        {n: torch.empty(v.shape, dtype=v.dtype, pin_memory=True) for n, v in out.items()},
-                        torch.cuda.Event(),
-                    )
-                tables, done = fetched[slot]
+            if slots[slot] is None:
+                slots[:] = [torch.empty(host.shape, dtype=host.dtype, device=dev) for _ in slots]
+                # The slots may reuse memory that work queued earlier on the
+                # compute stream still reads; the caching allocator holds them
+                # back from other tensors until the copy stream is done too.
+                up.wait_stream(comp)
+                for t in slots:
+                    t.record_stream(up)
+            elif computed[slot] is not None:
+                up.wait_event(computed[slot])
+            with torch.cuda.stream(up):
+                slots[slot].copy_(host, non_blocking=True)
+            # The staging thread waits for this event before it refills the
+            # pinned slot: a blocking event lets it sleep there instead of
+            # spinning in the driver beside the thread that launches.
+            uploaded[slot] = torch.cuda.Event(blocking=True)
+            uploaded[slot].record(up)
+            released.put((slot, uploaded[slot]))
+            CHUNK_COUNTS["pinned"] += 1
+        return slots[slot]
+
+    def download(slot, out):
+        """(host tables, their copies' event, `out`): `out` is kept until
+        the tables are read, so that no other tensor reuses its memory while
+        the copies read it."""
+        if not cuda:
+            return out, None, None
+        with span("ofc.readback"):
+            # A view with gaps (the hue table) is made whole here, on the
+            # compute stream, as `.cpu()` did: each copy down is one memcpy.
+            out = {n: v.contiguous() for n, v in out.items()}
+            computed[slot] = torch.cuda.Event()
+            computed[slot].record(comp)
+            down.wait_event(computed[slot])
+            tables = {n: torch.empty(v.shape, dtype=v.dtype, pin_memory=True) for n, v in out.items()}
+            with torch.cuda.stream(down):
                 for n, v in out.items():
                     tables[n].copy_(v, non_blocking=True)
-                done.record(torch.cuda.current_stream(dev))
-            out = tables
-        if pending is not None:
-            read(*pending)
-        pending = (slot, out, n_valid)
-    if pending is None:
-        return None
-    read(*pending)
+            done = torch.cuda.Event()
+            done.record(down)
+        return tables, done, out
+
+    def read(tables, done, out, n_valid):
+        with span("ofc.readback"):
+            if done is not None:
+                done.synchronize()
+            # Views: each chunk's tables are fresh tensors, copied once, into
+            # the result, by the concatenation below.
+            parts.append({k: v[:n_valid].numpy() for k, v in tables.items()})
+
+    with contextlib.closing(staged):
+        nxt = next(staged, None)
+        if nxt is None:
+            return None
+        frames = upload(*nxt[:2])
+        pending = None
+        k = 0
+        while nxt is not None:
+            slot, _, n_valid = nxt
+            if cuda:
+                comp.wait_event(uploaded[slot])
+            out = step(frames, k, n_valid)
+            CHUNK_COUNTS["chunks"] += 1
+            fetched = download(slot, out)
+            del out  # held by `fetched` on the card, until its tables are read
+            nxt = next(staged, None)
+            if nxt is not None:
+                frames = upload(*nxt[:2])
+            if pending is not None:
+                read(*pending)
+            pending = (*fetched, n_valid)
+            k += 1
+        read(*pending)
     with span("ofc.readback"):
         return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def _unstaged(chunks: Iterable[tuple[np.ndarray, int]]) -> Iterator[tuple[None, torch.Tensor, int]]:
+    """`_staged` on the CPU: (None, the chunk as a tensor, n_valid), taken
+    from `chunks` on the caller's thread as the loop comes to it."""
+    for batch, n_valid in chunks:
+        with span("ofc.stack"):
+            host = torch.from_numpy(batch)
+        yield None, host, n_valid
+
+
+_END = object()
+
+# A chunk of fewer bytes is staged on the caller's thread: its copy takes a
+# fraction of a millisecond there, while a staging thread running beside the
+# launching thread slowed the host-bound 232x220 crop (2.6 MB a chunk) by
+# 12-25% (PERF.md, PR 22). A 720p chunk (47 MB) takes milliseconds to copy,
+# which the thread hides behind the card's work.
+_STAGE_ON_THREAD_BYTES = 16 << 20
+
+
+def _staged(
+    chunks: Iterable[tuple[np.ndarray, int]], released: queue.Queue
+) -> Iterator[tuple[int, torch.Tensor, int]]:
+    """Yield (slot, pinned host tensor, n_valid) for each chunk of `chunks`,
+    copied into two pinned slots in turn. The caller puts (slot, event) on
+    `released` once it has enqueued the slot's upload; the slot is refilled
+    only after that event has completed. The first chunk is copied on the
+    caller's thread, since nothing runs on the card yet to overlap it. The
+    rest are copied by a staging thread, which runs ahead of the caller by
+    one chunk, or on the caller's thread where a chunk is smaller than
+    `_STAGE_ON_THREAD_BYTES`.
+
+    As in `io.video.prefetch_chunks`: the thread touches only host memory,
+    an exception of `chunks` is raised on the caller's side, and closing this
+    generator stops the thread at its next slot and joins it. The caller's
+    wait for a slot (or its own copy) is its `ofc.stack` span; the thread's
+    wait and copy are an `ofc.stage` span. Pinned slots come from torch's
+    caching host allocator, so a warm process allocates none."""
+    it = iter(chunks)
+    first = next(it, None)
+    if first is None:
+        return
+    host = torch.from_numpy(first[0])
+    threaded = host.nbytes >= _STAGE_ON_THREAD_BYTES
+    with span("ofc.stack"):
+        slots = [torch.empty(host.shape, dtype=host.dtype, pin_memory=True) for _ in range(2)]
+        if threaded:
+            # The card waits for this copy, so it takes torch's threads.
+            slots[0].copy_(host)
+        else:
+            np.copyto(slots[0].numpy(), first[0])
+    released.put((1, None))
+
+    def refill(got, batch):
+        """Copy `batch` into the released slot once its last upload is done.
+        numpy's copy runs on the calling thread alone: torch's would start a
+        team of threads for each staging thread."""
+        slot, upload = got
+        if upload is not None:
+            upload.synchronize()
+        np.copyto(slots[slot].numpy(), batch)
+        return slot
+
+    if not threaded:
+        yield 0, slots[0], first[1]
+        for batch, n_valid in it:
+            with span("ofc.stack"):
+                slot = refill(released.get_nowait(), batch)
+            yield slot, slots[slot], n_valid
+        return
+
+    ready: queue.Queue = queue.Queue()
+    stop = threading.Event()
+
+    def take():
+        while not stop.is_set():
+            try:
+                return released.get(timeout=0.05)
+            except queue.Empty:
+                continue
+        return None
+
+    @torch.inference_mode()  # the slots were made in inference mode
+    def worker():
+        try:
+            for batch, n_valid in it:
+                got = take()
+                if got is None:
+                    return
+                with span("ofc.stage"):
+                    slot = refill(got, batch)
+                ready.put((slot, slots[slot], n_valid))
+            ready.put(_END)
+        except Exception as e:  # noqa: BLE001 — raised again on the caller's side
+            ready.put(e)
+
+    t = threading.Thread(target=worker, name="ofc-stage", daemon=True)
+    t.start()
+    try:
+        yield 0, slots[0], first[1]
+        while True:
+            with span("ofc.stack"):
+                try:
+                    item = ready.get_nowait()
+                except queue.Empty:
+                    CHUNK_COUNTS["stalls"] += 1
+                    item = ready.get()
+            if item is _END:
+                return
+            if isinstance(item, Exception):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        t.join()
 
 
 @torch.inference_mode()

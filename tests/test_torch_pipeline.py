@@ -13,6 +13,9 @@ disc makes the 2×2 systems ill-conditioned, the jitted JAX pipeline's mean
 un-jitted flow's agrees within 1e-4)."""
 
 import os
+import queue
+import threading
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +33,9 @@ from opticalflowclustering_tpu.ops.polar import magnitude as j_magnitude
 from opticalflowclustering_tpu.pipeline import bounce as jpl
 from opticalflowclustering_tpu_torch.cli import kmeangrids as tcli
 from opticalflowclustering_tpu_torch.convert import from_jax_config
+from opticalflowclustering_tpu_torch.flow.farneback import FarnebackParams as TFlow
 from opticalflowclustering_tpu_torch.pipeline import bounce as tpl
+from opticalflowclustering_tpu_torch.scripts.clips import synth_frames
 from chip_smoke import cell_means, sat
 from test_real_footage_e2e import _check_hues
 
@@ -104,6 +109,183 @@ def test_process_frames_takes_a_clip_with_negative_strides():
     assert got.keys() == want.keys()
     for k, v in want.items():
         np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+# --- the one chunk loop (`_chunk_loop`) on the CPU ----------------------------
+
+LOOP_CFG = tpl.PipelineConfig(flow=TFlow(warp_mode="fast", levels=2))
+
+
+def _step_chunk_by_chunk(frames, cfg):
+    """chunk_step over each `_chunk_frames` chunk in turn, concatenated and
+    cut to the clip's pairs: the loop's semantics, written out."""
+    n_pairs = frames.shape[0] - 1
+    outs = [tpl.chunk_step(torch.from_numpy(tpl._chunk_frames(frames, s, cfg.chunk)), cfg, "cpu")
+            for s in range(0, n_pairs, cfg.chunk)]
+    return {k: np.concatenate([o[k].numpy() for o in outs])[:n_pairs] for k in outs[0]}
+
+
+@pytest.mark.parametrize("chunk, n_frames", [(4, 5), (2, 7), (4, 7), (16, 6)],
+                         ids=["one_chunk", "whole_chunks", "padded_tail", "one_padded_chunk"])
+def test_process_frames_is_the_step_run_chunk_by_chunk(chunk, n_frames):
+    """process_frames on a clip of one chunk, of N-1 a multiple of `chunk`,
+    and with a padded tail: every key (the render too) bitwise the step run
+    chunk by chunk, with its dtype and N-1 rows."""
+    frames = synth_frames(n_frames, 48, 64)
+    cfg = tpl.dataclasses.replace(LOOP_CFG, chunk=chunk)
+    got = tpl.process_frames(frames, cfg, "cpu")
+    want = _step_chunk_by_chunk(frames, cfg)
+    assert sorted(got) == sorted(want) == ["centroids", "flow_bgr", "hue_table", "mean_magnitude", "rgb_hue_table"]
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and got[k].shape == v.shape == (n_frames - 1,) + v.shape[1:], k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("fail_at", [0, 1, 2])
+def test_a_step_that_raises_reaches_the_caller(monkeypatch, fail_at):
+    """A step that raises in chunk k of three: the error reaches the caller
+    of process_frames, no thread is left behind and the (read-only) clip is
+    unchanged."""
+    frames = synth_frames(7, 48, 64)
+    before = frames.copy()
+    frames.setflags(write=False)
+    step, calls = tpl.chunk_step, []
+
+    def chunk_step(*a, **k):
+        if len(calls) == fail_at:
+            raise RuntimeError(f"step {fail_at} failed")
+        calls.append(k)
+        return step(*a, **k)
+
+    monkeypatch.setattr(tpl, "chunk_step", chunk_step)
+    threads = set(threading.enumerate())
+    with pytest.raises(RuntimeError, match=f"step {fail_at} failed"):
+        tpl.process_frames(frames, tpl.dataclasses.replace(LOOP_CFG, chunk=2), "cpu")
+    assert len(calls) == fail_at
+    assert set(threading.enumerate()) == threads
+    np.testing.assert_array_equal(frames, before)
+
+
+def test_chunk_counts_reset_and_count_on_the_cpu():
+    """CHUNK_COUNTS counts every chunk of every loop; on the CPU nothing is
+    staged, so no chunk is pinned and none stalls; the reset zeroes all."""
+    frames = synth_frames(7, 48, 64)
+    cfg = tpl.dataclasses.replace(LOOP_CFG, chunk=2, emit_flow_bgr=False)
+    tpl.reset_chunk_counts()
+    assert tpl.CHUNK_COUNTS == {"chunks": 0, "pinned": 0, "stalls": 0}
+    tpl.process_frames(frames, cfg, "cpu")
+    assert tpl.CHUNK_COUNTS == {"chunks": 3, "pinned": 0, "stalls": 0}
+    tpl._stream_tables([(tpl._chunk_frames(frames, 0, 4), 4)], cfg, torch.device("cpu"))
+    assert tpl.CHUNK_COUNTS == {"chunks": 4, "pinned": 0, "stalls": 0}
+    tpl.reset_chunk_counts()
+    assert tpl.CHUNK_COUNTS == {"chunks": 0, "pinned": 0, "stalls": 0}
+
+
+class _Upload:
+    """Stands in for a slot's upload event: it is complete when the staging
+    thread waits on it, which the log records."""
+
+    def __init__(self, log, slot):
+        self.log, self.slot = log, slot
+
+    def synchronize(self):
+        self.log.append(self.slot)
+
+
+@pytest.fixture(params=["thread"])
+def staged_on_cpu(request, monkeypatch):
+    """`_staged` with its slots in plain host memory (this torch has no
+    pinned memory): its thread, queues and spans run as on the card. With
+    "thread" every chunk after the first is staged on the staging thread,
+    with "caller" on the caller's thread (the tests' chunks are small)."""
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, pin_memory=False, **k: empty(*a, **k))
+    if request.param == "thread":
+        monkeypatch.setattr(tpl, "_STAGE_ON_THREAD_BYTES", 0)
+    return tpl._staged
+
+
+def _staging_threads():
+    return [t for t in threading.enumerate() if t.name == "ofc-stage"]
+
+
+@pytest.mark.parametrize("staged_on_cpu", ["thread", "caller"], indirect=True)
+@pytest.mark.parametrize("n_chunks", [1, 2, 5])
+def test_staging_thread_refills_a_slot_only_after_its_release(staged_on_cpu, n_chunks):
+    """Chunk k arrives in slot k % 2 with its data and n_valid, and stays
+    there until the caller releases the slot: the stager (the thread, or
+    the caller's own next step) waits on the release's upload before it
+    copies the next chunk in. The thread runs while chunks remain, is gone
+    at the end, and never starts for chunks staged on the caller's thread."""
+    threaded = tpl._STAGE_ON_THREAD_BYTES == 0
+    chunks = [(np.full((3, 2, 2, 3), i, np.uint8), 10 + i) for i in range(n_chunks)]
+    released, log, seen = queue.Queue(), [], []
+    for slot, host, n_valid in staged_on_cpu(iter(chunks), released):
+        k = len(seen)
+        seen.append((slot, n_valid))
+        assert bool((host == k).all())
+        time.sleep(0.02)  # a stager a chunk ahead must not touch this slot yet
+        assert bool((host == k).all())
+        if k == 0 and n_chunks > 2:
+            assert bool(_staging_threads()) == threaded
+        released.put((slot, _Upload(log, slot)))
+    assert seen == [(k % 2, 10 + k) for k in range(n_chunks)]
+    assert log == [k % 2 for k in range(max(n_chunks - 2, 0))]
+    assert not _staging_threads()
+
+
+@pytest.mark.parametrize("threshold, threaded", [(36, True), (37, False)])
+def test_chunks_from_the_threshold_up_are_staged_on_the_thread(monkeypatch, threshold, threaded):
+    """A chunk of `_STAGE_ON_THREAD_BYTES` or more goes to the staging
+    thread, a smaller one is staged on the caller's thread; both yield the
+    same slots and data."""
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, pin_memory=False, **k: empty(*a, **k))
+    monkeypatch.setattr(tpl, "_STAGE_ON_THREAD_BYTES", threshold)
+    chunks = [(np.full((3, 2, 2, 3), i, np.uint8), 1) for i in range(4)]  # 36 bytes each
+    released, seen, alive = queue.Queue(), [], []
+    for slot, host, _ in tpl._staged(iter(chunks), released):
+        seen.append((slot, int(host[0, 0, 0, 0])))
+        alive.append(bool(_staging_threads()))
+        released.put((slot, None))
+    assert seen == [(k % 2, k) for k in range(4)]
+    assert alive[0] is threaded
+    if not threaded:
+        assert not any(alive)
+    assert not _staging_threads()
+
+
+def test_staging_thread_raises_the_sources_error_and_stops_when_closed(staged_on_cpu):
+    """An error of the source reaches the caller after the chunks before it;
+    a caller that stops early (closing the generator) stops and joins the
+    thread; a slow source counts stalls."""
+    def broken():
+        for i in range(3):
+            yield np.full((2, 2, 2, 3), i, np.uint8), 1
+        raise OSError("corrupt chunk 3")
+
+    released, seen = queue.Queue(), []
+    with pytest.raises(OSError, match="corrupt chunk 3"):
+        for slot, host, _ in staged_on_cpu(broken(), released):
+            seen.append(int(host[0, 0, 0, 0]))
+            released.put((slot, None))
+    assert seen == [0, 1, 2]
+    assert not _staging_threads()
+
+    def slow():
+        for i in range(100):
+            time.sleep(0.01)
+            yield np.full((2, 2, 2, 3), i % 256, np.uint8), 1
+
+    tpl.reset_chunk_counts()
+    released = queue.Queue()
+    gen = staged_on_cpu(slow(), released)
+    for _ in range(3):
+        slot, _, _ = next(gen)
+        released.put((slot, None))
+    gen.close()
+    assert not _staging_threads()
+    assert tpl.CHUNK_COUNTS["stalls"] >= 1
 
 
 def test_kmeangrids_cli_on_demo_clip(tmp_path, monkeypatch):

@@ -9,6 +9,7 @@ batch path's (`process_frames`) and the JAX stream's, integer tables bitwise
 and mean_magnitude within rtol 1e-6 (measured: bitwise on the CPU)."""
 
 import os
+import threading
 
 import cv2
 import numpy as np
@@ -89,6 +90,44 @@ def test_stream_matches_jax_stream_and_process_frames(clip, mode, chunk):
     assert got["centroids"].dtype == np.int32 and got["rgb_hue_table"].dtype == np.float32
     _assert_tables_equal(got, want_batch, "vs process_frames")
     _assert_tables_equal(got, want_jax, "vs the JAX stream")
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 16])
+@pytest.mark.parametrize("source", ["prefetch", "list"])
+def test_stream_tables_and_process_frames_run_one_loop(clip, chunk, source):
+    """`_stream_tables` over the prefetch thread's batches, or over a list
+    of assembled batches (no thread), and process_frames over the same
+    decoded frames: one chunk loop, the same tables (a zero-padded tail
+    there, a repeated last frame here)."""
+    frames = tvideo.read_video_bgr(clip)
+    cfg = from_jax_config(_jcfg("fast", chunk))
+    if source == "prefetch":
+        chunks = tvideo.prefetch_chunks(iter(frames), chunk)
+    else:
+        chunks = list(tvideo.assemble_chunks(iter(frames), chunk, 1))
+    tpl.reset_chunk_counts()
+    got = tpl._stream_tables(chunks, cfg, torch.device("cpu"))
+    assert tpl.CHUNK_COUNTS["chunks"] == -(-(frames.shape[0] - 1) // chunk)
+    _assert_tables_equal(got, tpl.process_frames(frames, cfg, "cpu"), f"{source} chunk {chunk}")
+    assert tpl._stream_tables(iter([]), cfg, torch.device("cpu")) is None
+
+
+def test_stream_step_error_reaches_the_caller_and_stops_the_decode_thread(clip, monkeypatch):
+    """A step that raises in the second chunk: process_video_stream raises
+    it, and the decode thread is stopped and joined."""
+    step, calls = tpl.chunk_step, []
+
+    def chunk_step(*a, **k):
+        if calls:
+            raise RuntimeError("step 1 failed")
+        calls.append(1)
+        return step(*a, **k)
+
+    monkeypatch.setattr(tpl, "chunk_step", chunk_step)
+    threads = set(threading.enumerate())
+    with pytest.raises(RuntimeError, match="step 1 failed"):
+        tpl.process_video_stream(clip, from_jax_config(_jcfg("fast", 4)), device="cpu")
+    assert set(threading.enumerate()) == threads
 
 
 def test_stream_needs_two_frames_and_respects_max_frames(clip, tmp_path):
